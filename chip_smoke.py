@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernel, holds it
-against its plain PyTorch version, and drives the batched closed-loop
-trot rollout through it.
+against its plain PyTorch version, and drives every ported path through
+it: the massless and articulated closed loops, the QP headline and the
+load-factor double solve.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -17,20 +18,44 @@ Phases, each of which raises (exit code 1) when a gate fails:
    than 1e-3 below the plain version's worst (the instances outside are
    printed). Times the kernel (CUDA events), the wrapper's (B, E) ->
    (E, B) transposes and the plain version.
-4. The main path: ``rollout(plant="massless")`` over B = 4096 trot
-   scenarios for 100 planner ticks (400 control substeps). Gates: exactly
-   400 kernel launches, finite telemetry, upright fraction >= 0.99, QP
-   KKT p99 <= 1e-2 and p99.9 <= 1e-3; the rollout's worst-KKT QP,
-   re-solved alone, gives the kernel's in-rollout answer again (it is
-   printed beside the plain version's); a 5-tick run through the plain
-   QP agrees on base positions within 1e-3 m. Then ``plant="none"`` for
-   25 ticks.
+4. The massless main path: ``rollout(plant="massless")`` over B = 4096
+   trot scenarios for ``--ticks`` planner ticks (default 100). Gates:
+   exactly 4 kernel launches per tick, finite telemetry, upright fraction
+   >= 0.99, QP KKT p99 <= 1e-2 and p99.9 <= 1e-3; the rollout's worst-KKT
+   QP, re-solved alone, gives the kernel's in-rollout answer again; a
+   5-tick run through the plain QP agrees on base positions within
+   1e-3 m. Then ``plant="none"`` for 25 ticks.
+5. The QP headline (``headline.measure``, bench.py's default run) at
+   B = 4096 through ``solve_weighted_ls_fd_qp``: 10 dependent solves per
+   CUDA-graph replay and the single eager dispatch. Gates (bench.py's):
+   KKT finite and p99 <= 1e-4, median wrench error <= 0.1, objective gap
+   against the generic QP median <= 1e-4 and p99 <= 1e-3 on 512
+   instances, the wrench-error tail proven constraint-bound. Also times
+   the wrapper's plain version and the generic QP on the same batch.
+6. The load-factor double solve (``solve_fd_qp_batched(load_factors=)``)
+   at B = 4096 with seeded factors in [0.3, 1.2] over 3- and 4-leg
+   supports. Gates: exactly 2 launches, pinned legs equal factor x the
+   first solution bit for bit, each dispatch against the plain version
+   on identical inputs (the first on the original problems, the second
+   on the problems eliminated with the kernel's first solution):
+   objective gap median <= 1e-4 and p99 <= 1e-3; KKT p99 <= 1e-3. The
+   end-to-end gap against the "plain" backend is printed.
+7. The articulated main path: ``rollout(plant="articulated")`` (the
+   default plant) over B = 4096 trot scenarios for ``--art-ticks``
+   planner ticks (default 50). Gates: 4 launches per tick, finite
+   telemetry, upright fraction >= 0.99 at the end, a 5-tick run through
+   the plain QP within 1e-3 m of the kernel run.
+8. Latency at B = 1 (bench.py's ``_latency_measure``): 25-tick chunks
+   through the kernel with plant "none" and "articulated"; per-control-
+   tick p50 / p99 ms over the chunks, recorded, not gated.
 
-``--dump PATH`` writes the QPs that phases 3 and 4 single out, with the
+``--dump PATH`` writes the QPs that the gates single out, with the
 kernel's answers, to an .npz (``tests/test_torch_fd_qp.py`` holds the
 committed one against the JAX solvers).
 
-The line before the last is the ``{"kernels": [...]}`` record, the last
+The line before the last is the ``{"kernels": [...]}`` record, whose
+launch counts sum every main-path phase (graph replays included, the
+kernel-vs-plain comparisons excluded); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -76,22 +101,6 @@ def versions() -> str:
             f"{release[0].strip() if release else nvcc.stdout.strip()}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn`` over ``reps`` calls, timed
-    with CUDA events after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def trot_commands(batch: int, seed: int):
     """Per-scenario trot commands over bench.py's trot ranges: vx in
     [-0.1, 0.4], vy in ±0.1, yaw rate in ±0.3 rad/s."""
@@ -111,34 +120,41 @@ SUPPORTS = np.array([[1, 1, 1, 1], [1, 1, 1, 0], [0, 1, 1, 1],
                      [1, 0, 0, 1], [0, 1, 1, 0]], bool)
 
 
-def qp_batch(batch: int, n_random: int, device):
-    """(G, g, D, d, A, S, b, W, n_stance): ``batch - n_random`` stance QPs
-    from the port's build_qp (base displaced by ±3 cm, supports drawn
-    from full, 3-leg and diagonal stances) then ``n_random`` random PD
-    QPs. A/S/b/W cover the stance rows only."""
+def stance_qps(n: int, supports: np.ndarray, rng, device):
+    """(A, b, S, W, D, d, support) of ``n`` standing-balance QPs from the
+    port's build_qp: the default stance with the base displaced by
+    uniform ±3 cm and a support drawn from the rows of ``supports``."""
     from quadruped_locomotion_tpu_torch.control.force_distribution import build_qp
-    from quadruped_locomotion_tpu_torch.control.locomotion import form_quadratic
     from quadruped_locomotion_tpu_torch.control.vmc import compute_virtual_wrench
     from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
     from quadruped_locomotion_tpu_torch.types import (
         BaseTarget, CfdParams, RobotModel, VmcGains,
     )
 
-    rng = np.random.default_rng(SEED)
-    n_stance = batch - n_random
     model = RobotModel.simpledog(device)
-    sim = simlib.default_stance_state(model, height=0.4, batch=(n_stance,))
+    sim = simlib.default_stance_state(model, height=0.4, batch=(n,))
     target = BaseTarget.from_base(sim.robot.base)
-    noise = torch.as_tensor(rng.uniform(-0.03, 0.03, (n_stance, 3)),
+    noise = torch.as_tensor(rng.uniform(-0.03, 0.03, (n, 3)),
                             dtype=torch.float32, device=device)
-    sup = torch.as_tensor(SUPPORTS[rng.integers(0, len(SUPPORTS), n_stance)],
+    sup = torch.as_tensor(supports[rng.integers(0, len(supports), n)],
                           device=device)
     base = sim.robot.base.replace(position=sim.robot.base.position + noise)
     state = sim.robot.replace(base=base, support=sup)
     vf, vt = compute_virtual_wrench(model, VmcGains.gazebo_defaults(device),
                                     state, target)
-    A, b, S, W, D, d = build_qp(model, CfdParams.defaults(device), state,
-                                vf, vt)
+    qp_data = build_qp(model, CfdParams.defaults(device), state, vf, vt)
+    return (*(t.contiguous() for t in qp_data), sup)
+
+
+def qp_batch(batch: int, n_random: int, device):
+    """(G, g, D, d, A, S, b, W, n_stance): ``batch - n_random`` stance QPs
+    (supports drawn from full, 3-leg and diagonal stances) then
+    ``n_random`` random PD QPs. A/S/b/W cover the stance rows only."""
+    from quadruped_locomotion_tpu_torch.ops.fd_qp_kernel import form_quadratic
+
+    rng = np.random.default_rng(SEED)
+    n_stance = batch - n_random
+    A, b, S, W, D, d, _ = stance_qps(n_stance, SUPPORTS, rng, device)
     G, g = form_quadratic(A, S, W, b)
 
     # Random PD QPs with a strictly feasible point x0 (Dx0 - d >= 0.1), so
@@ -174,6 +190,7 @@ def objectives(x, G, g, A, S, b, W, n_stance):
 
 
 def check_kernel(batch: int, device, dump: dict | None = None) -> dict:
+    from quadruped_locomotion_tpu_torch.headline import cuda_ms
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
 
     G, g, D, d, A, S, b, W, n_stance = qp_batch(batch, batch // 4, device)
@@ -400,25 +417,286 @@ def check_main_path(batch: int, ticks: int, device, ms_kernel: float,
     if not dpos <= 1e-3:
         raise AssertionError(f"plain and kernel rollouts differ by {dpos} m")
 
+    fk.launches = 0
     tel_n, wall_n = run_rollout(args, 25, device, plant="none")
+    launches_none = fk.launches
+    if launches_none != 25 * cl.CONTROL_SUBSTEPS:
+        raise AssertionError(f"plant='none' launched {launches_none} times")
     if not all(torch.isfinite(v).all() for v in tel_n.values()
                if v.is_floating_point()):
         raise AssertionError("plant='none' telemetry is not finite")
     log(f"rollout none B={batch} ticks=25: {wall_n:.2f} s, "
         f"{25 * cl.PLANNER_DT / wall_n:.4f} sim s per wall s")
-    res.update(max_dpos_plain=dpos, worst_qp=worst)
+    res.update(max_dpos_plain=dpos, worst_qp=worst,
+               launches_none=launches_none)
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 5: the QP headline
+# --------------------------------------------------------------------------
+
+
+def wls_bound(batch: int) -> tuple[float, str]:
+    """(bound ms, "operations" | "bytes") of solve_weighted_ls_fd_qp."""
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+
+    t_ops = fk.weighted_ls_fd_qp_flops() * batch / F32_PEAK * 1e3
+    t_bytes = fk.weighted_ls_fd_qp_bytes(batch) / HBM_RATE * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_headline(batch: int, device, dump: dict | None) -> dict:
+    from quadruped_locomotion_tpu_torch.headline import cuda_ms
+    from quadruped_locomotion_tpu_torch import headline
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.ops import qp
+
+    fk.launches = fk.wls_launches = 0
+    t0 = time.perf_counter()
+    res = headline.measure(batch, device=device)
+    res.update(wall_s=time.perf_counter() - t0, launches=fk.launches,
+               wls_launches=fk.wls_launches)
+    log(f"headline B={batch}: " + json.dumps(res))
+    if fk.launches != fk.wls_launches or fk.launches < headline.CHAIN:
+        raise AssertionError(f"headline launch counts {res}")
+    if not (res["kkt_finite"] and res["chain_x_finite"]
+            and res["kkt_p99"] <= 1e-4 and res["wrench_err_p50"] <= 0.1):
+        raise AssertionError(f"headline QP quality gate failed: {res}")
+    if not (res["generic_gap_median"] <= 1e-4 and res["generic_gap_p99"] <= 1e-3):
+        raise AssertionError(f"kernel vs generic QP objective gap: {res}")
+    if not res["tail_proven"]:
+        raise AssertionError(f"wrench-error tail not proven: {res}")
+
+    # the wrapper against its plain version, and the generic QP, on the card
+    A, b, S, W, D, d = headline.build_batch(batch, device)
+    xk, _, _, kk = fk.solve_weighted_ls_fd_qp(A, S, b, W, D, d)
+    xp, _, _, kp = fk.solve_weighted_ls_fd_qp_plain(A, S, b, W, D, d)
+    torch.cuda.synchronize()
+    ok = headline.objective(xk.double(), A.double(), S.double(), b.double(),
+                            W.double())
+    op = headline.objective(xp.double(), A.double(), S.double(), b.double(),
+                            W.double())
+    gap = ((ok - op).abs() / (1.0 + op.abs())).cpu().numpy()
+    ms_plain = cuda_ms(lambda: fk.solve_weighted_ls_fd_qp_plain(
+        A, S, b, W, D, d), 5, warmup=1)
+    ms_generic = cuda_ms(lambda: qp.solve_weighted_ls_qp(
+        A, S, b, W, D, d, iters=15), 2, warmup=1)
+    bound_ms, bound_by = wls_bound(batch)
+    cmp = dict(max_abs_err_x=(xk - xp).abs().max().item(),
+               median_abs_err_x=(xk - xp).abs().amax(-1).median().item(),
+               plain_gap_median=float(np.median(gap)),
+               plain_gap_p99=float(np.percentile(gap, 99)),
+               kkt_plain_p99=float(np.percentile(kp.cpu().numpy(), 99)),
+               ms_plain=ms_plain, ms_generic=ms_generic, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log(f"solve_weighted_ls_fd_qp at B={batch}: wrapper "
+        f"{res['single_dispatch_ms']:.4f} ms, chained {res['batch_time_ms']:.4f} "
+        f"ms per solve, plain {ms_plain:.3f} ms, generic QP {ms_generic:.1f} ms, "
+        f"bound {bound_ms * 1e3:.2f} us ({bound_by}); vs plain: "
+        + json.dumps(cmp))
+    if dump is not None:
+        worst = torch.topk(kk, 16).indices
+        dump.update({f"headline_{k}": t[worst].cpu().numpy() for k, t in
+                     dict(A=A, b=b, S=S, W=W, D=D, d=d, x_kernel=xk,
+                          kkt_kernel=kk, x_plain=xp, kkt_plain=kp).items()})
+    res.update(cmp)
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 6: the load-factor double solve
+# --------------------------------------------------------------------------
+
+LF_SUPPORTS = np.array([[1, 1, 1, 1], [1, 1, 1, 0], [0, 1, 1, 1],
+                        [1, 0, 1, 1], [1, 1, 0, 1]], bool)
+
+
+def lf_batch(batch: int, device):
+    """(A, b, S, W, D, d, support, factors): stance QPs on 4- and 3-leg
+    supports (numpy seed 1), factors in [0.3, 1.2]."""
+    rng = np.random.default_rng(SEED + 1)
+    *qp_data, sup = stance_qps(batch, LF_SUPPORTS, rng, device)
+    lf = torch.as_tensor(rng.uniform(0.3, 1.2, (batch, 4)), dtype=torch.float32,
+                         device=device)
+    return (*qp_data, sup, lf)
+
+
+def check_load_factors(batch: int, device) -> dict:
+    """The double solve through the kernel (2 launches), and each of its
+    two dispatches against the plain version on identical inputs: the
+    first on the original problems, the second on the problems
+    eliminated with the kernel's first solution. (Compared end to end,
+    kernel and plain pin different first solutions, which sit up to ~1 N
+    apart in the W = 1e-4 flat valley, so their second problems differ;
+    that gap is printed, not gated.)"""
+    from quadruped_locomotion_tpu_torch.headline import cuda_ms
+    from quadruped_locomotion_tpu_torch import headline
+    from quadruped_locomotion_tpu_torch.control import force_distribution as fd
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+
+    A, b, S, W, D, d, sup, lf = lf_batch(batch, device)
+    solve = lambda backend, A, b, D, d, **kw: fd.solve_fd_qp_batched(  # noqa: E731
+        A, b, S, W, D, d, backend=backend, **kw)
+    fk.launches = fk.wls_launches = 0
+    sol = solve("kernel", A, b, D, d, load_factors=lf, support=sup)
+    launches, wls = fk.launches, fk.wls_launches
+    first = solve("kernel", A, b, D, d)
+    first_plain = solve("plain", A, b, D, d)
+    A2, b2, D2, d2, pinned, x_pin = fd.eliminate_pinned(
+        A, b, D, d, first.x, lf, sup)
+    second_plain = fd.combine_pinned(solve("plain", A2, b2, D2, d2).x, x_pin,
+                                     pinned, sup)
+    end_to_end_plain = solve("plain", A, b, D, d, load_factors=lf, support=sup)
+    torch.cuda.synchronize()
+    pin12 = pinned.repeat_interleave(3, dim=-1)
+    want = first.x * lf.repeat_interleave(3, dim=-1)
+    pinned_exact = bool(torch.equal(sol.x[pin12], want[pin12]))
+
+    def gap(x, xp, A, b):
+        o = lambda x: headline.objective(  # noqa: E731
+            x.double(), A.double(), S.double(), b.double(), W.double())
+        ok, op = o(x), o(xp)
+        g = ((ok - op).abs() / (1.0 + op.abs())).cpu().numpy()
+        return float(np.median(g)), float(np.percentile(g, 99)), float(g.max())
+
+    free = lambda x: torch.where(pin12, torch.zeros_like(x), x)  # noqa: E731
+    g1 = gap(first.x, first_plain.x, A, b)
+    g2 = gap(free(sol.x), free(second_plain), A2, b2)
+    ge = gap(sol.x, end_to_end_plain.x, A, b)
+    kkt = sol.kkt_error.cpu().numpy()
+    ms = cuda_ms(lambda: solve("kernel", A, b, D, d, load_factors=lf,
+                               support=sup), 10)
+    ms_plain = cuda_ms(lambda: solve("plain", A, b, D, d, load_factors=lf,
+                                     support=sup), 2, warmup=1)
+    res = dict(launches=launches, wls_launches=wls, pinned_exact=pinned_exact,
+               pinned_legs=int(pinned.sum().item()),
+               first_gap_median=g1[0], first_gap_p99=g1[1], first_gap_max=g1[2],
+               second_gap_median=g2[0], second_gap_p99=g2[1],
+               second_gap_max=g2[2], end_to_end_gap_median=ge[0],
+               end_to_end_gap_p99=ge[1], end_to_end_gap_max=ge[2],
+               kkt_p99=float(np.percentile(kkt, 99)), kkt_max=float(kkt.max()),
+               kkt_plain_p99=float(np.percentile(
+                   end_to_end_plain.kkt_error.cpu().numpy(), 99)),
+               finite=bool(torch.isfinite(sol.x).all()), ms_kernel=ms,
+               ms_plain=ms_plain)
+    log(f"load factors B={batch}: " + json.dumps(res))
+    if launches != 2 or wls != 2:
+        raise AssertionError(f"load-factor solve launched {launches} times")
+    if not (pinned_exact and res["finite"]):
+        raise AssertionError(f"pinned legs differ from factor x first solve: {res}")
+    for k in ("first", "second"):
+        if not (res[f"{k}_gap_median"] <= 1e-4 and res[f"{k}_gap_p99"] <= 1e-3):
+            raise AssertionError(f"load-factor {k} solve vs plain: {res}")
+    if not res["kkt_p99"] <= 1e-3:
+        raise AssertionError(f"load-factor KKT p99: {res}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 7: the articulated main path
+# --------------------------------------------------------------------------
+
+
+def check_articulated(batch: int, ticks: int, device) -> dict:
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+
+    args = setup_rollout(batch, device)
+    fk.launches = 0
+    tel, wall = run_rollout(args, ticks, device, plant="articulated")
+    launches = fk.launches
+    for k, v in tel.items():
+        if v.is_floating_point() and not torch.isfinite(v).all():
+            raise AssertionError(f"articulated telemetry {k} is not finite")
+    upright = (tel["base_position"][-1, :, 2] > 0.25).float().mean().item()
+    kkt = tel["qp_kkt"].cpu().numpy()
+    sim_s = ticks * cl.PLANNER_DT
+    res = dict(launches=launches, ticks=ticks, wall_s=wall, upright=upright,
+               height_min=tel["base_position"][..., 2].min().item(),
+               kkt_p99=float(np.percentile(kkt, 99)), kkt_max=float(kkt.max()),
+               s_per_tick=wall / ticks,
+               scenario_sim_s_per_wall_s=batch * sim_s / wall)
+    log(f"rollout articulated B={batch} ticks={ticks}: " + json.dumps(res))
+    if launches != ticks * cl.CONTROL_SUBSTEPS:
+        raise AssertionError(f"kernel launched {launches} times, want "
+                             f"{ticks * cl.CONTROL_SUBSTEPS}")
+    if upright < 0.99:
+        raise AssertionError(f"articulated upright fraction {upright} < 0.99")
+
+    short = 5
+    tel_p, wall_p = run_rollout(args, short, device, plant="articulated",
+                                qp_backend="plain")
+    dpos = (tel_p["base_position"]
+            - tel["base_position"][:short]).abs().max().item()
+    log(f"rollout articulated B={batch} ticks={short} plain QP: {wall_p:.2f} s, "
+        f"max |base position - kernel run| = {dpos:.3e} m")
+    if not dpos <= 1e-3:
+        raise AssertionError(f"plain and kernel articulated rollouts differ "
+                             f"by {dpos} m")
+    res.update(max_dpos_plain=dpos)
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 8: latency at B = 1
+# --------------------------------------------------------------------------
+
+
+def check_latency(chunks: int, device) -> dict:
+    """Per-control-tick ms of 25-tick chunks at B = 1 (bench.py's
+    _latency_measure: vx = 0.2 m/s), after a 5-tick warm-up chunk."""
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+
+    model, params, gp, ls0, _ = setup_rollout(1, device)
+    cmd = cl.Command(linear_velocity=torch.tensor([[0.2, 0.0, 0.0]],
+                                                  device=device),
+                     yaw_rate=torch.zeros(1, device=device))
+    chunk = 25
+    out = {"launches": 0}
+    for plant in ("none", "articulated"):
+        fk.launches = 0
+        ls, _ = cl.rollout(model, params, gp, ls0, cmd, 5, plant=plant,
+                           device=device)
+        per_ctrl = []
+        for _ in range(chunks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ls, tel = cl.rollout(model, params, gp, ls, cmd, chunk, plant=plant,
+                                 device=device)
+            torch.cuda.synchronize()
+            per_ctrl.append((time.perf_counter() - t0) * 1e3
+                            / (chunk * cl.CONTROL_SUBSTEPS))
+        want = (5 + chunks * chunk) * cl.CONTROL_SUBSTEPS
+        if fk.launches != want:
+            raise AssertionError(f"latency {plant}: {fk.launches} launches, "
+                                 f"want {want}")
+        if not torch.isfinite(tel["base_position"]).all():
+            raise AssertionError(f"latency {plant}: telemetry not finite")
+        out["launches"] += fk.launches
+        out[plant] = dict(p50_ms=float(np.percentile(per_ctrl, 50)),
+                          p99_ms=float(np.percentile(per_ctrl, 99)),
+                          chunks_ms=per_ctrl)
+    log("latency B=1 per 400 Hz control tick (25-tick chunks): "
+        + json.dumps(out))
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=100,
-                    help="planner ticks of the main-path rollout (a quick "
+                    help="planner ticks of the massless rollout (a quick "
                          "check after a kernel change uses fewer)")
+    ap.add_argument("--art-ticks", type=int, default=50,
+                    help="planner ticks of the articulated rollout")
+    ap.add_argument("--latency-chunks", type=int, default=3,
+                    help="timed 25-tick chunks per plant at B = 1")
     ap.add_argument("--dump", type=Path, default=None,
                     help="write the QP instances the gates look at (the "
-                         "kernel's and plain version's Dx >= d violators "
-                         "and the rollout's worst-KKT QP) to this .npz")
+                         "kernel's and plain version's Dx >= d violators, "
+                         "the rollout's worst-KKT QP and the headline's "
+                         "worst-KKT instances) to this .npz")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -427,6 +705,7 @@ def main() -> int:
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.types import full_f32_matmuls
 
+    t_start = time.perf_counter()
     full_f32_matmuls()
     device = torch.device("cuda")
     card = card_line()
@@ -440,23 +719,52 @@ def main() -> int:
         + " | ".join(ptxas))
 
     dump = None if args.dump is None else {}
-    k = check_kernel(BATCH, device, dump)
-    m = check_main_path(BATCH, args.ticks, device, k["ms_kernel"], dump)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    k = timed("kernel_check", check_kernel, BATCH, device, dump)
+    m = timed("massless", check_main_path, BATCH, args.ticks, device,
+              k["ms_kernel"], dump)
+    h = timed("headline", check_headline, BATCH, device, dump)
+    lf = timed("load_factors", check_load_factors, BATCH, device)
+    a = timed("articulated", check_articulated, BATCH, args.art_ticks, device)
+    lat = timed("latency", check_latency, args.latency_chunks, device)
     if dump is not None:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
         np.savez(args.dump, **dump)
 
+    launches = (m["launches"] + m["launches_none"] + h["launches"]
+                + lf["launches"] + a["launches"] + lat["launches"])
+    log("phase wall seconds: " + json.dumps(phase_s)
+        + f"; whole script {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{
         "name": "fd_qp_ipm",
         "route": "cuda",
         "source": "quadruped_locomotion_tpu_torch/csrc/fd_qp_ipm.cu",
         "replaces": "quadruped_locomotion_tpu/ops/qp_pallas.py:199",
-        "launches": m["launches"],
+        "launches": launches,
         "max_abs_err": k["max_abs_err_x"],
         "ms": k["ms_wrapper"],
         "plain_ms": k["ms_plain"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "solve_weighted_ls_fd_qp",
+        "route": "cuda",
+        "source": "quadruped_locomotion_tpu_torch/csrc/fd_qp_ipm.cu",
+        "replaces": "quadruped_locomotion_tpu/ops/qp_pallas.py:651",
+        "launches": h["wls_launches"] + lf["wls_launches"],
+        "max_abs_err": h["max_abs_err_x"],
+        "ms": h["single_dispatch_ms"],
+        "plain_ms": h["ms_plain"],
+        "bound_ms": h["bound_ms"],
+        "bound_by": h["bound_by"],
         "library_ms": None,
     }]}
     log(card)

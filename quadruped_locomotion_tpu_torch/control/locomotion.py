@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from ..model.kinematics import forward_kinematics, mv
+from ..ops.fd_qp_kernel import form_quadratic
 from ..ops.qp import QpSolution
 from ..types import (
     BaseTarget, CfdParams, RobotModel, RobotState, SwingGains, TensorStruct,
@@ -56,13 +57,6 @@ class LocomotionContext(NamedTuple):
     virtual_force: torch.Tensor  # (...,3)
     virtual_torque: torch.Tensor  # (...,3)
     tau_swing: torch.Tensor  # (...,4,3) swing computed-torque output
-
-
-def form_quadratic(A, S, W, b):
-    """G = 2AᵀSA + diag(W), g = −2AᵀSb, in full float32 (callers keep
-    TF32 off, see ``types.full_f32_matmuls``)."""
-    SA = A * S[..., :, None]
-    return (2.0 * A.mT) @ SA + torch.diag_embed(W), mv(-2.0 * SA.mT, b)
 
 
 def locomotion_prepare(

@@ -3,7 +3,9 @@
 The exchange format is a nested dict of numpy arrays keyed by dataclass
 field name, mirroring the JAX package's dataclasses and NamedTuples
 (``RobotModel``, ``ControllerParams`` = (vmc, cfd, swing), ``GaitParams``,
-``LocomotionState`` = (sim, gait, fsm) with the swing-spline tables).
+``LocomotionState`` = (sim, gait, fsm) with the swing-spline tables,
+``SimState`` of either plant (the articulated one keeps its pinned feet's
+anchors in ``feet_world``), ``QpSolution``).
 :func:`from_numpy` builds any of the port's objects on a device, e.g.
 ``from_numpy(LocomotionState, tree, "cuda")``; :func:`to_numpy` is the
 reverse. Producing the dict from JAX objects is the caller's side
@@ -22,22 +24,36 @@ import torch
 from .types import resolve_device
 
 
+def _is_struct(cls) -> bool:
+    """A dataclass or a NamedTuple class."""
+    return dataclasses.is_dataclass(cls) or (
+        isinstance(cls, type) and issubclass(cls, tuple)
+        and hasattr(cls, "_fields"))
+
+
+def _field_names(cls):
+    if dataclasses.is_dataclass(cls):
+        return [f.name for f in dataclasses.fields(cls)]
+    return list(cls._fields)
+
+
 def _build(cls, tree: dict, device: torch.device):
     hints = typing.get_type_hints(cls)
     kwargs = {}
-    for f in dataclasses.fields(cls):
-        kind = hints[f.name]
-        value = tree[f.name]
-        if dataclasses.is_dataclass(kind):
-            kwargs[f.name] = _build(kind, value, device)
+    for name in _field_names(cls):
+        kind = hints[name]
+        value = tree[name]
+        if _is_struct(kind):
+            kwargs[name] = _build(kind, value, device)
         else:
-            kwargs[f.name] = torch.as_tensor(np.asarray(value), device=device)
+            kwargs[name] = torch.as_tensor(np.asarray(value), device=device)
     return cls(**kwargs)
 
 
 def from_numpy(cls, tree: dict, device=None):
-    """Any of the port's tensor dataclasses (e.g. ``SimState``) from its
-    nested numpy dict, on ``device`` (default CUDA)."""
+    """Any of the port's tensor dataclasses or NamedTuples (e.g.
+    ``SimState``, ``QpSolution``) from its nested numpy dict, on
+    ``device`` (default CUDA)."""
     return _build(cls, tree, resolve_device(device))
 
 

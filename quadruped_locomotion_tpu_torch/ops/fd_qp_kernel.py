@@ -47,6 +47,9 @@ NVCC_FLAGS = (
 # not count). Callers reset it to 0 and read it to show that a run went
 # through the kernel.
 launches = 0
+# Calls of solve_weighted_ls_fd_qp that launched the kernel (each one is
+# also one of ``launches``).
+wls_launches = 0
 
 
 @dataclass
@@ -188,6 +191,41 @@ def solve_fd_qp_entry_major(Gt, gt, Dt, dt, iters: int = 15):
         )
     launches += 1
     return x, s, z, kkt
+
+
+def form_quadratic(A, S, W, b):
+    """G = 2AᵀSA + diag(W), g = −2AᵀSb for A (..., 6, 12), S (..., 6),
+    W (..., 12), b (..., 6), in full float32 (callers keep TF32 off, see
+    ``types.full_f32_matmuls``)."""
+    SA = A * S[..., :, None]
+    return (2.0 * A.mT) @ SA + torch.diag_embed(W), _mv(-2.0 * SA.mT, b)
+
+
+def solve_weighted_ls_fd_qp(A, S, b, W, D, d, iters: int = 15):
+    """Batched weighted least-squares form of the force-distribution QP
+    (≙ ``qp_pallas.solve_weighted_ls_fd_qp``):
+
+        min (Ax − b)ᵀ diag(S) (Ax − b) + xᵀ diag(W) x   s.t.   Dx ≥ d
+
+    with A (B,6,12), S (B,6), b (B,6), W (B,12), D (B,20,12), d (B,20).
+    Forms G = 2AᵀSA + diag(W) and g = −2AᵀSb as plain batched float32
+    products (the reference forms them outside its kernel too), then
+    calls :func:`solve_fd_qp`: one kernel launch on CUDA tensors, the
+    plain version on CPU tensors. Returns (x, s, z, kkt)."""
+    global wls_launches
+    G, g = form_quadratic(A, S, W, b)
+    out = solve_fd_qp(G.contiguous(), g.contiguous(), D.contiguous(),
+                      d.contiguous(), iters)
+    if G.device.type == "cuda":
+        wls_launches += 1
+    return out
+
+
+def solve_weighted_ls_fd_qp_plain(A, S, b, W, D, d, iters: int = 15):
+    """:func:`solve_weighted_ls_fd_qp` through the plain version on any
+    device (for comparisons on the card)."""
+    G, g = form_quadratic(A, S, W, b)
+    return solve_fd_qp_plain(G, g, D, d, iters)
 
 
 # ---------------------------------------------------------------------------
@@ -420,3 +458,23 @@ def fd_qp_bytes(batch: int) -> int:
     """Bytes the function must move: each input read once (G, g, D, d) and
     each output written once (x, s, z, kkt), float32."""
     return 4 * batch * (N * N + N + MI * N + MI + N + MI + MI + 1)
+
+
+M_ROWS = 6  # rows of the wrench map A
+
+
+def weighted_ls_fd_qp_flops(iters: int = 15) -> int:
+    """:func:`fd_qp_flops` plus the formation of G and g per instance:
+    SA = A·diag(S) (one multiply per entry), AᵀSA (one multiply-add per
+    term of all 144 entries), the factor 2 and diag(W), g = −2(SA)ᵀb."""
+    m, n = M_ROWS, N
+    formation = m * n + 2 * m * n * n + n * n + n + 2 * m * n + n
+    return fd_qp_flops(iters) + formation
+
+
+def weighted_ls_fd_qp_bytes(batch: int) -> int:
+    """Bytes :func:`solve_weighted_ls_fd_qp` must move: A, S, b, W, D, d
+    read once (356 floats against G, g, D, d's 416), x, s, z, kkt written
+    once, float32."""
+    inputs = M_ROWS * N + M_ROWS + M_ROWS + N + MI * N + MI
+    return 4 * batch * (inputs + N + MI + MI + 1)

@@ -28,6 +28,7 @@ from ..gait.phase import GaitParams
 from ..model.kinematics import foot_velocities, forward_kinematics
 from ..types import RobotModel, TensorStruct, full_f32_matmuls, resolve_device
 from ..utils.rotations import cross, quat_rotate
+from . import articulated as artlib
 from . import simulator as simlib
 from .simulator import SimState
 
@@ -45,9 +46,11 @@ def _no_plant_step(model, sim, tau, dt, **kw):
         base=base.replace(position=base.position + eps[..., None])))
 
 
-# "massless": trunk + swing-leg plant (rollout/simulator.py). "none":
-# controller only. The articulated 18-DoF plant is not ported yet.
-PLANTS = {"massless": simlib.step, "none": _no_plant_step}
+# "articulated" (the default): the fully coupled 18-DoF floating-base
+# plant (rollout/articulated.py). "massless": trunk + swing-leg plant
+# (rollout/simulator.py). "none": controller only.
+PLANTS = {"articulated": artlib.step, "massless": simlib.step,
+          "none": _no_plant_step}
 
 
 def measured_foot_speed_tangential(model: RobotModel, robot) -> torch.Tensor:
@@ -97,9 +100,6 @@ def init_locomotion(
 
 
 def _plant(plant: str):
-    if plant == "articulated":
-        raise NotImplementedError(
-            "the articulated plant is not ported yet (next slice)")
     if plant not in PLANTS:
         raise ValueError(f"unknown plant {plant!r}")
     return PLANTS[plant]
@@ -113,13 +113,18 @@ def planner_tick(
     command: Command,
     qp_iters: int = 15,
     terrain=None,
-    plant: str = "massless",
+    plant: str = "articulated",
+    friction_mu: float | None = None,
     qp_backend: str = "auto",
 ):
     """One 100 Hz planner tick + 4 control/physics substeps over the batch.
-    Returns (new LocomotionState, per-scenario max QP KKT over the
-    substeps (B,))."""
+    ``friction_mu`` (articulated plant only) bounds contact forces by the
+    Coulomb cone. Returns (new LocomotionState, per-scenario max QP KKT
+    over the substeps (B,))."""
     plant_step = _plant(plant)
+    plant_kwargs = ({"friction_mu": friction_mu}
+                    if friction_mu is not None and plant == "articulated"
+                    else {})
     gait2, support, (pos_w, vel_w, acc_w), target, normals = gg.advance(
         model, ls.gait, ls.sim.robot, ls.sim.feet_world, gait_params,
         command.linear_velocity, command.yaw_rate, PLANNER_DT, terrain=terrain,
@@ -152,7 +157,7 @@ def planner_tick(
             model, state, fsm.q_freeze, torch.zeros_like(fsm.q_freeze))
         tau = torch.where(fsm.freeze[..., None], tau_freeze, tau)
         sim = plant_step(model, sim, tau, CONTROL_DT, support=fsm.support,
-                         ground_height=gz)
+                         ground_height=gz, **plant_kwargs)
         k = sol.kkt_error
         kkt = k if kkt is None else torch.maximum(kkt, k)
     return LocomotionState(sim=sim, gait=gait2, fsm=fsm_state), kkt
@@ -167,7 +172,8 @@ def rollout(
     planner_steps: int,
     qp_iters: int = 15,
     terrain=None,
-    plant: str = "massless",
+    plant: str = "articulated",
+    friction_mu: float | None = None,
     qp_backend: str = "auto",
     device=None,
 ):
@@ -185,7 +191,8 @@ def rollout(
     for _ in range(planner_steps):
         ls, kkt = planner_tick(
             model, params, gait_params, ls, command, qp_iters=qp_iters,
-            terrain=terrain, plant=plant, qp_backend=qp_backend,
+            terrain=terrain, plant=plant, friction_mu=friction_mu,
+            qp_backend=qp_backend,
         )
         base = ls.sim.robot.base
         tel["base_position"].append(base.position)

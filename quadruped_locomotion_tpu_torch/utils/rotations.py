@@ -52,6 +52,23 @@ def quat_inv_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rotate(quat_conj(q), v)
 
 
+def matrix_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix of a unit quaternion: (..., 4) -> (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
 def quat_from_rpy(roll, pitch, yaw) -> torch.Tensor:
     """Intrinsic ZYX (yaw·pitch·roll)."""
     cr, sr = torch.cos(0.5 * roll), torch.sin(0.5 * roll)

@@ -1,19 +1,23 @@
-"""Write the JAX reference rollout that the PyTorch port is held against.
+"""Write the JAX reference rollouts that the PyTorch port is held against.
 
 Runs ``quadruped_locomotion_tpu``'s batched closed loop
-(``rollout(batched=True, plant="massless", qp_backend="xla",
-terrain=None)``) over B trot scenarios whose velocity commands are drawn
-from a seeded numpy generator, and saves its inputs (model, controller
-and gait parameters, the initial batched state, the commands) and its
-per-tick telemetry to one compressed ``.npz``. Keys are ``/``-joined
-field paths, e.g. ``ls0/sim/robot/base/position`` or ``tel/qp_kkt``.
+(``rollout(batched=True, plant=..., qp_backend="xla", terrain=None)``)
+over B trot scenarios whose velocity commands are drawn from a seeded
+numpy generator, and saves its inputs (model, controller and gait
+parameters, the initial batched state, the commands) and its per-tick
+telemetry to one compressed ``.npz``. Keys are ``/``-joined field paths,
+e.g. ``ls0/sim/robot/base/position`` or ``tel/qp_kkt``.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_golden.py \
-        [--out tests/data/torch_port_rollout_golden.npz] [--batch 8] \
-        [--ticks 25] [--seed 0]
+        [--plant massless|articulated] [--out PATH] [--batch B] \
+        [--ticks T] [--seed 0]
 
-The first run compiles the batched rollout on XLA:CPU, which takes a few
-minutes.
+Defaults: the massless plant, B = 8, 25 ticks, written to
+``tests/data/torch_port_rollout_golden.npz``; with ``--plant
+articulated``, B = 2, 10 ticks, written to
+``tests/data/torch_port_articulated_golden.npz``. The first run compiles
+the batched rollout on XLA:CPU, which takes a few minutes (the
+articulated plant longer).
 """
 
 from __future__ import annotations
@@ -24,10 +28,14 @@ import os
 
 import numpy as np
 
-DEFAULT_OUT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "tests", "data", "torch_port_rollout_golden.npz",
-)
+DATA = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "data")
+# plant -> (default output, batch, ticks)
+DEFAULTS = {
+    "massless": (os.path.join(DATA, "torch_port_rollout_golden.npz"), 8, 25),
+    "articulated": (os.path.join(DATA, "torch_port_articulated_golden.npz"),
+                    2, 10),
+}
 
 
 def jax_to_numpy(obj):
@@ -66,7 +74,8 @@ def trot_commands(batch: int, seed: int):
     return lin, wz.astype(np.float32)
 
 
-def make_golden(batch: int = 8, ticks: int = 25, seed: int = 0) -> dict:
+def make_golden(batch: int = 8, ticks: int = 25, seed: int = 0,
+                plant: str = "massless") -> dict:
     """Run the JAX reference and return the flat ``{key: array}`` dict."""
     import jax
     import jax.numpy as jnp
@@ -90,7 +99,7 @@ def make_golden(batch: int = 8, ticks: int = 25, seed: int = 0) -> dict:
     run = jax.jit(
         lambda ls, c: cl.rollout(
             model, params, gp, ls, c, ticks, batched=True,
-            plant="massless", qp_backend="xla", terrain=None,
+            plant=plant, qp_backend="xla", terrain=None,
         )
     )
     _, tel = run(ls0, cmd)
@@ -102,23 +111,26 @@ def make_golden(batch: int = 8, ticks: int = 25, seed: int = 0) -> dict:
         "cmd": {"linear_velocity": lin, "yaw_rate": wz},
         "tel": jax_to_numpy(tel),
         "meta": {"batch": np.asarray(batch), "ticks": np.asarray(ticks),
-                 "seed": np.asarray(seed)},
+                 "seed": np.asarray(seed), "plant": np.asarray(plant)},
     }
     return flatten(tree)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=DEFAULT_OUT)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--ticks", type=int, default=25)
+    ap.add_argument("--plant", choices=sorted(DEFAULTS), default="massless")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--ticks", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    golden = make_golden(args.batch, args.ticks, args.seed)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    np.savez_compressed(args.out, **golden)
-    print(f"wrote {args.out}: {len(golden)} arrays, "
-          f"{os.path.getsize(args.out)} bytes")
+    out, batch, ticks = DEFAULTS[args.plant]
+    out = args.out or out
+    golden = make_golden(args.batch or batch, args.ticks or ticks, args.seed,
+                         plant=args.plant)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **golden)
+    print(f"wrote {out}: {len(golden)} arrays, {os.path.getsize(out)} bytes")
 
 
 if __name__ == "__main__":

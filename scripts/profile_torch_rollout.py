@@ -1,27 +1,34 @@
-"""Where the time goes in the PyTorch port's batched closed loop on a GPU.
+"""Where the time goes in the PyTorch port's main paths on a GPU.
 
-Runs ``rollout(plant="massless")`` of ``quadruped_locomotion_tpu_torch``
-over B = 4096 trot scenarios (commands from numpy seed 0, as in
-``chip_smoke.py``), warms up, then
+``--path`` selects what is profiled at B = 4096:
 
-1. times ``TICKS`` planner ticks with the host clock around a
-   synchronised run (wall seconds per tick, scenario-seconds per
-   wall-second);
-2. profiles ``PROFILE_TICKS`` ticks with ``torch.profiler`` (CPU and
-   CUDA activities) and prints the device busy share (summed kernel time
-   over the window's wall time), the top CUDA kernels by device time and
-   the top operators by host time.
+* ``articulated`` (default; the JAX package's default plant),
+  ``massless`` or ``none``: the batched closed loop over trot scenarios
+  (commands from numpy seed 0, as in ``chip_smoke.py``). Warms up, times
+  ``TICKS`` planner ticks with the host clock around a synchronised run
+  (wall seconds per tick, scenario-seconds per wall-second), then
+  profiles ``PROFILE_TICKS`` ticks.
+* ``headline``: ``PROFILE_CALLS`` eager ``solve_weighted_ls_fd_qp`` calls
+  and ``PROFILE_CALLS`` replays of the headline's 10-deep CUDA graph
+  (``headline.ChainGraph``) on ``headline.build_batch``.
+* ``load_factors``: ``PROFILE_CALLS`` load-factor double solves
+  (``solve_fd_qp_batched(load_factors=...)``) on ``chip_smoke.lf_batch``.
 
-The QP kernel's own time per launch is ``chip_smoke.py``'s (phase 3).
+Each profile window (``torch.profiler``, CPU and CUDA activities) prints
+the device busy share (summed device time over the window's wall time),
+the CUDA kernels launched per control substep or per call, and the top
+CUDA kernels by device time. The QP kernel's own time per launch is
+``chip_smoke.py``'s (phase 3).
 
-    python3 scripts/profile_torch_rollout.py
+    python3 scripts/profile_torch_rollout.py [--path articulated]
 
 Needs a CUDA card; exits 1 without one. The full profiler tables go to
-``chiprun_out/profile_torch_rollout.txt``.
+``chiprun_out/profile_torch_<path>.txt``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -34,45 +41,20 @@ sys.path.insert(0, str(ROOT))
 
 TICKS = 10  # timed warm planner ticks
 PROFILE_TICKS = 2  # ticks under torch.profiler
+PROFILE_CALLS = 5  # QP calls (or graph replays) under torch.profiler
+PATHS = ("articulated", "massless", "none", "headline", "load_factors")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_rollout: CUDA is not available", file=sys.stderr)
-        return 1
-
-    import chip_smoke
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
-    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
-    from quadruped_locomotion_tpu_torch.types import full_f32_matmuls
-
-    full_f32_matmuls()
-    dev = torch.device("cuda")
-    print(f"card: {chip_smoke.card_line()}", flush=True)
-    fk.build_kernel()
-    B = chip_smoke.BATCH
-    model, params, gp, ls, cmd = chip_smoke.setup_rollout(B, dev)
-
-    def ticks(n, ls):
-        for _ in range(n):
-            ls, _ = cl.planner_tick(model, params, gp, ls, cmd)
-        return ls
-
-    ls = ticks(2, ls)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ls = ticks(TICKS, ls)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / TICKS
-    print(json.dumps({"batch": B, "wall_s_per_tick": wall,
-                      "scenario_sim_s_per_wall_s": B * cl.PLANNER_DT / wall}),
-          flush=True)
-
+def profile_window(path: str, fn, per: int, unit: str):
+    """Run ``fn`` under torch.profiler; print the busy share, the CUDA
+    kernels per ``unit`` (``per`` units in the window) and the top
+    kernels, and write the full tables to chiprun_out/."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ls = ticks(PROFILE_TICKS, ls)
+        fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     events = prof.key_averages()
@@ -83,21 +65,100 @@ def main() -> int:
     device_us = sum(e.self_device_time_total for e in kernels)
     n_kernels = sum(e.count for e in kernels)
     print(json.dumps({
-        "profile_ticks": PROFILE_TICKS, "window_s": window,
+        "path": path, "window_s": window,
         "device_busy_s": device_us * 1e-6,
         "device_busy_share": device_us * 1e-6 / window,
         "cuda_kernel_launches": n_kernels,
-        "launches_per_substep": n_kernels / (PROFILE_TICKS
-                                             * cl.CONTROL_SUBSTEPS),
+        f"launches_per_{unit}": n_kernels / per,
     }), flush=True)
-    by_device = events.table(sort_by="self_device_time_total", row_limit=15)
-    by_host = events.table(sort_by="self_cpu_time_total", row_limit=25)
-    print(by_device, flush=True)
+    print(events.table(sort_by="self_device_time_total", row_limit=15),
+          flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_torch_rollout.txt").write_text(
+    (out / f"profile_torch_{path}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=60) + "\n"
-        + by_host)
+        + events.table(sort_by="self_cpu_time_total", row_limit=25))
+
+
+def profile_rollout(plant: str, dev) -> None:
+    import chip_smoke
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+
+    B = chip_smoke.BATCH
+    model, params, gp, ls, cmd = chip_smoke.setup_rollout(B, dev)
+    state = {"ls": ls}
+
+    def ticks(n):
+        for _ in range(n):
+            state["ls"], _ = cl.planner_tick(model, params, gp, state["ls"],
+                                             cmd, plant=plant)
+
+    ticks(2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks(TICKS)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TICKS
+    print(json.dumps({"plant": plant, "batch": B, "wall_s_per_tick": wall,
+                      "scenario_sim_s_per_wall_s": B * cl.PLANNER_DT / wall}),
+          flush=True)
+    profile_window(plant, lambda: ticks(PROFILE_TICKS),
+                   PROFILE_TICKS * cl.CONTROL_SUBSTEPS, "substep")
+
+
+def profile_qp(path: str, dev) -> None:
+    import chip_smoke
+    from quadruped_locomotion_tpu_torch import headline
+    from quadruped_locomotion_tpu_torch.control.force_distribution import (
+        solve_fd_qp_batched,
+    )
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+
+    B = chip_smoke.BATCH
+    if path == "headline":
+        A, b, S, W, D, d = headline.build_batch(B, dev)
+        chain = headline.ChainGraph(A, b, S, W, D, d)
+
+        def run():
+            for _ in range(PROFILE_CALLS):
+                fk.solve_weighted_ls_fd_qp(A, S, b, W, D, d)
+            for _ in range(PROFILE_CALLS):
+                chain.replay()
+
+        per = PROFILE_CALLS * (1 + headline.CHAIN)
+    else:
+        A, b, S, W, D, d, sup, lf = chip_smoke.lf_batch(B, dev)
+
+        def run():
+            for _ in range(PROFILE_CALLS):
+                solve_fd_qp_batched(A, b, S, W, D, d, load_factors=lf,
+                                    support=sup)
+
+        per = PROFILE_CALLS
+    run()  # warm-up
+    profile_window(path, run, per, "solve" if path == "headline" else "call")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", default="articulated", choices=PATHS)
+    path = ap.parse_args().path
+    if not torch.cuda.is_available():
+        print("profile_torch_rollout: CUDA is not available", file=sys.stderr)
+        return 1
+
+    import chip_smoke
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.types import full_f32_matmuls
+
+    full_f32_matmuls()
+    dev = torch.device("cuda")
+    print(f"card: {chip_smoke.card_line()}", flush=True)
+    fk.build_kernel()
+    if path in ("headline", "load_factors"):
+        profile_qp(path, dev)
+    else:
+        profile_rollout(path, dev)
     return 0
 
 

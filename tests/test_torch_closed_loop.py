@@ -155,8 +155,7 @@ def test_controller_only_plant_holds_state():
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("plant, err", [("articulated", NotImplementedError),
-                                        ("rigid", ValueError)])
+@pytest.mark.parametrize("plant, err", [("rigid", ValueError)])
 def test_unported_plants_raise(plant, err):
     with pytest.raises(err):
         cl.rollout(*_small(), 1, plant=plant, device="cpu")
