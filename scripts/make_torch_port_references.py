@@ -1,0 +1,291 @@
+"""Write the JAX reference outputs that the port's slice-2 CPU tests
+compare against (``tests/test_torch_{qp,headline,articulated}.py``).
+
+Every input is made here from numpy seeds (the tests import the same
+generators), goes through the JAX package's functions on the CPU, and
+the outputs are saved to one compressed ``.npz`` with ``/``-joined keys
+under three sections:
+
+* ``qp/``: ``ops/qp.py::solve_qp`` on the cases of ``tests/test_qp.py``
+  (the quadprog++ worked example, random inequality and equality QPs, a
+  warm start with the light polish);
+* ``headline/``: ``bench.build_batch`` on one 1024-instance tile and the
+  kernel trace ``qp_pallas.solve_weighted_ls_fd_qp(emulate=True)`` on it;
+  ``tests/test_balance.py``'s load-factor batch and the JAX
+  ``distribute`` on it;
+* ``articulated/``: ``rollout/articulated.py``'s ``mass_matrix``,
+  ``bias_forces``, ``unconstrained_accel`` and one ``step`` (rigid and
+  μ = 0.05) on seeded states.
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
+        [--out tests/data/torch_port_slice2_refs.npz]
+
+Takes about two minutes on a CPU, most of it XLA compilation. The tests
+recompute each section live under ``-m slow``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_slice2_refs.npz")
+
+TILE = 1024  # one (8, 128) tile of the JAX kernel trace
+LOAD_FACTORS = np.array([1.0, 1.0, 0.5, 1.0], np.float32)
+B_LF = 4  # tests/test_balance.py's load-factor batch
+B_ART = 4
+ART_SUPPORT = np.array([[1, 1, 1, 1], [1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 1, 1]],
+                       bool)
+ART_SUPPORT_CMD = np.array([[1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 0],
+                            [1, 0, 0, 1]], bool)
+ART_MU = (None, 0.05)
+
+
+def _tree(obj):
+    """JAX dataclass / NamedTuple tree -> nested dict of numpy arrays."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _tree(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {k: _tree(v) for k, v in obj._asdict().items()}
+    return np.asarray(obj)
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# inputs (numpy seeds)
+# ---------------------------------------------------------------------------
+
+
+def worked_example():
+    """quadprog++'s documented example: x = [1, 2], f = 12."""
+    return dict(G=np.array([[4.0, -2.0], [-2.0, 4.0]]), g=np.array([6.0, 0.0]),
+                D=np.array([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]),
+                d=np.array([0.0, 0.0, 2.0]), C=np.array([[1.0, 1.0]]),
+                c=np.array([3.0]))
+
+
+def ineq_problems():
+    """tests/test_qp.py::test_random_inequality_qps_vs_scipy, seeds 0-5:
+    stacked (G, g, D, d)."""
+    out = []
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        n, mi = 6, 9
+        A = rng.normal(size=(n, n))
+        out.append((A @ A.T + n * np.eye(n), rng.normal(size=n) * 2,
+                    rng.normal(size=(mi, n)), rng.uniform(-1.0, 0.2, size=mi)))
+    return [np.stack(a) for a in zip(*out)]
+
+
+def eq_problems():
+    """tests/test_qp.py::test_random_equality_qps_vs_scipy, seeds 100-102:
+    stacked (G, g, D, d, C, c)."""
+    out = []
+    for seed in range(3):
+        rng = np.random.default_rng(seed + 100)
+        n, mi, me = 6, 8, 2
+        A = rng.normal(size=(n, n))
+        G, g = A @ A.T + n * np.eye(n), rng.normal(size=n)
+        D, d = rng.normal(size=(mi, n)), rng.uniform(-1.5, -0.5, size=mi)
+        C = rng.normal(size=(me, n))
+        out.append((G, g, D, d, C, C @ np.zeros(n)))
+    return [np.stack(a) for a in zip(*out)]
+
+
+def balance_noise():
+    """tests/test_balance.py's ±2 cm base offsets (numpy seed 7)."""
+    return np.random.default_rng(7).uniform(-0.02, 0.02, size=(B_LF, 3)
+                                            ).astype(np.float32)
+
+
+def articulated_inputs():
+    """Random configurations (for M, h and free flight) and perturbed
+    standing states with mixed pins and commands (for a step), float32."""
+    from quadruped_locomotion_tpu.rollout import simulator as jsim
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    rng = np.random.default_rng(0)
+    quat = rng.normal(size=(B_ART, 4))
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    base = {"position": rng.normal(size=(B_ART, 3)), "quaternion": quat,
+            "linear_velocity": rng.normal(size=(B_ART, 3)),
+            "angular_velocity": rng.normal(size=(B_ART, 3))}
+    config = {"base": {k: v.astype(np.float32) for k, v in base.items()},
+              "q": rng.uniform(-0.8, 0.8, (B_ART, 4, 3)).astype(np.float32),
+              "qd": (0.5 * rng.normal(size=(B_ART, 4, 3))).astype(np.float32)}
+    stand = _tree(jsim.default_stance_state(RobotModel.simpledog()))
+
+    def batched(t):
+        return ({k: batched(v) for k, v in t.items()} if isinstance(t, dict)
+                else np.broadcast_to(t, (B_ART,) + t.shape).copy())
+
+    sim = batched(stand)
+    r = sim["robot"]
+    r["base"]["linear_velocity"] += 0.1 * rng.normal(size=(B_ART, 3)).astype(np.float32)
+    r["base"]["angular_velocity"] += 0.2 * rng.normal(size=(B_ART, 3)).astype(np.float32)
+    r["qd"] += 0.3 * rng.normal(size=(B_ART, 4, 3)).astype(np.float32)
+    r["support"] = ART_SUPPORT.copy()
+    tau = (20.0 * rng.normal(size=(B_ART, 4, 3))).astype(np.float32)
+    tau[..., 1] -= 30.0
+    return {"config": config, "sim": sim, "tau": tau}
+
+
+# ---------------------------------------------------------------------------
+# references (JAX)
+# ---------------------------------------------------------------------------
+
+
+def qp_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.ops import qp
+
+    f32 = lambda a: jnp.asarray(np.asarray(a, np.float32))  # noqa: E731
+    w = worked_example()
+    we = qp.solve_qp(*(f32(w[k]) for k in "GgDd"), C=f32(w["C"]), c=f32(w["c"]))
+    G, g, D, d = map(f32, ineq_problems())
+    ineq = jax.vmap(lambda *a: qp.solve_qp(*a, iters=30))(G, g, D, d)
+    warm = jax.vmap(lambda G, g, D, d, xw, zw: qp.solve_qp(
+        G, g, D, d, iters=8, warm=(xw, zw), polish="light"))(
+        G, g, D, d, ineq.x, ineq.z)
+    eq = [qp.solve_qp(*(f32(a[i]) for a in eq_problems()[:4]),
+                      C=f32(eq_problems()[4][i]), c=f32(eq_problems()[5][i]),
+                      iters=30).x for i in range(3)]
+    return {"worked/x": we.x, "worked/y": we.y, "ineq/x": ineq.x,
+            "ineq/z": ineq.z, "ineq/iterations": ineq.iterations,
+            "warm_light/x": warm.x, "eq/x": np.stack(eq)}
+
+
+def headline_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, ROOT)
+    import bench
+    from quadruped_locomotion_tpu.control import force_distribution as fd
+    from quadruped_locomotion_tpu.control.vmc import compute_virtual_wrench
+    from quadruped_locomotion_tpu.ops import qp_pallas
+    from quadruped_locomotion_tpu.rollout import simulator as simlib
+    from quadruped_locomotion_tpu.types import (
+        BaseTarget, CfdParams, RobotModel, VmcGains,
+    )
+
+    A, b, S, W, D, d = bench.build_batch(TILE)
+    x, _, _, kkt = qp_pallas.solve_weighted_ls_fd_qp(
+        A, S, b, W, D, d, iters=15, emulate=True)
+    out = {f"tile/{k}": v for k, v in zip("AbSWDd", (A, b, S, W, D, d))}
+    out.update({"tile/x_emulated": x, "tile/kkt_emulated": kkt})
+
+    model, gains, cfd = RobotModel.simpledog(), VmcGains.gazebo_defaults(), CfdParams.defaults()
+    sim = simlib.default_stance_state(model, height=0.4)
+    target = BaseTarget.from_base(sim.robot.base)
+
+    def state(n):
+        return sim.robot.replace(base=sim.robot.base.replace(
+            position=sim.robot.base.position + n))
+
+    def build(n):
+        st = state(n)
+        return fd.build_qp(model, cfd, st, *compute_virtual_wrench(
+            model, gains, st, target))
+
+    noise = jnp.asarray(balance_noise())
+    qp_data = jax.jit(jax.vmap(build))(noise)
+    out.update({f"balance/{k}": v for k, v in zip("AbSWDd", qp_data)})
+    grf, wrench = [], []
+    for i in range(B_LF):  # per scenario, as the reference test does
+        st = state(noise[i])
+        r = fd.distribute(model, cfd, st, *compute_virtual_wrench(
+            model, gains, st, target), iters=25,
+            load_factors=jnp.asarray(LOAD_FACTORS))
+        grf.append(r.ground_reaction)
+        wrench.append(r.virtual_wrench_realized)
+    out.update({"balance/grf_distribute": np.stack(grf),
+                "balance/wrench_distribute": np.stack(wrench)})
+    return out
+
+
+def articulated_references() -> dict:
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.rollout import articulated as art
+    from quadruped_locomotion_tpu.rollout import simulator as simlib
+    from quadruped_locomotion_tpu.types import BaseState, RobotModel, RobotState
+
+    model = RobotModel.simpledog()
+    inp = articulated_inputs()
+    c, s = inp["config"], inp["sim"]
+
+    def base(tree, i):
+        return BaseState(**{k: jnp.asarray(v[i]) for k, v in tree.items()})
+
+    def sim(i):
+        r = s["robot"]
+        robot = RobotState(base=base(r["base"], i),
+                           **{k: jnp.asarray(v[i]) for k, v in r.items()
+                              if k != "base"})
+        return simlib.SimState(robot=robot,
+                               feet_world=jnp.asarray(s["feet_world"][i]),
+                               time=jnp.asarray(s["time"][i]))
+
+    out = {"mass_matrix": [], "bias_forces": [], "free_flight": []}
+    steps = {mu: [] for mu in ART_MU}
+    for i in range(B_ART):
+        q, qd = jnp.asarray(c["q"][i]), jnp.asarray(c["qd"][i])
+        out["mass_matrix"].append(art.mass_matrix(model, base(c["base"], i), q))
+        out["bias_forces"].append(art.bias_forces(model, base(c["base"], i), q, qd))
+        out["free_flight"].append(art.unconstrained_accel(
+            model, base(c["base"], i), q, qd, jnp.asarray(inp["tau"][i])))
+        for mu in ART_MU:
+            steps[mu].append(_flatten(_tree(art.step(
+                model, sim(i), jnp.asarray(inp["tau"][i]), 0.0025,
+                support=jnp.asarray(ART_SUPPORT_CMD[i]), friction_mu=mu))))
+    refs = {k: np.stack(v) for k, v in out.items()}
+    for mu, per in steps.items():
+        tag = "stick" if mu is None else "slide"
+        refs.update({f"step_{tag}/{k}": np.stack([p[k] for p in per])
+                     for k in per[0]})
+    return refs
+
+
+SECTIONS = {"qp": qp_references, "headline": headline_references,
+            "articulated": articulated_references}
+
+
+def make_references() -> dict:
+    out = {}
+    for name, fn in SECTIONS.items():
+        out.update({f"{name}/{k}": np.asarray(v) for k, v in fn().items()})
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    args = ap.parse_args()
+    refs = make_references()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    np.savez_compressed(args.out, **refs)
+    print(f"wrote {args.out}: {len(refs)} arrays, "
+          f"{os.path.getsize(args.out)} bytes")
+
+
+if __name__ == "__main__":
+    main()

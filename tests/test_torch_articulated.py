@@ -2,12 +2,15 @@
 against the JAX package's, and the port's closed loop through it.
 
 Seeded numpy states (joint angles in ±0.8 rad, random joint and base
-velocities, random unit quaternions, mixed pin states) go through the
-JAX functions one scenario at a time and through the port as one batch.
-Both sides evaluate the same closed-form kinematics with forward-mode
+velocities, random unit quaternions, mixed pin states; generated by
+``scripts/make_torch_port_references.py``) go through the JAX functions
+one scenario at a time (the committed ``articulated/`` section of
+``tests/data/torch_port_slice2_refs.npz``; ``-m slow`` recomputes it
+live and repeats every check) and through the port as one batch. Both
+sides evaluate the same closed-form kinematics with forward-mode
 autodiff in float32, summed in another order, so M agrees to 1e-5
 relative to its largest entry and h to 1e-5 relative (observed 1e-7);
-one step agrees to 1e-4 in joint velocity and 1e-6 in position, with
+one step agrees to 1e-4 in joint velocity and 1e-5 in base state, with
 identical pin states.
 
 The closed loop is held against ``tests/data/torch_port_articulated_golden.npz``
@@ -18,21 +21,14 @@ planner ticks, generic XLA QP); ``-m slow`` regenerates it live.
 
 from __future__ import annotations
 
-import dataclasses
 import sys
 from pathlib import Path
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from quadruped_locomotion_tpu.rollout import articulated as jart
-from quadruped_locomotion_tpu.rollout import simulator as jsim
-from quadruped_locomotion_tpu.types import (
-    BaseState as JBase, RobotModel as JModel, RobotState as JRobot,
-)
 from quadruped_locomotion_tpu_torch import convert
 from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
 from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
@@ -46,86 +42,78 @@ from quadruped_locomotion_tpu_torch.types import BaseState, RobotModel
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_articulated_golden.npz"
+REFS = ROOT / "tests" / "data" / "torch_port_slice2_refs.npz"
 sys.path.insert(0, str(ROOT / "scripts"))
+import make_torch_port_references as make_refs  # noqa: E402
 
 torch.set_num_threads(1)
 
-B = 4
-SUPPORT = np.array([[1, 1, 1, 1], [1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 1, 1]], bool)
-SUPPORT_CMD = np.array([[1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 0], [1, 0, 0, 1]],
-                       bool)
-
-
-def _jax_tree(obj):
-    if dataclasses.is_dataclass(obj):
-        return {f.name: _jax_tree(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
-    return np.asarray(obj)
-
-
-def _random_base(rng):
-    quat = rng.normal(size=(B, 4))
-    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
-    return {"position": rng.normal(size=(B, 3)),
-            "quaternion": quat,
-            "linear_velocity": rng.normal(size=(B, 3)),
-            "angular_velocity": rng.normal(size=(B, 3))}
+B = make_refs.B_ART
+SUPPORT_CMD = make_refs.ART_SUPPORT_CMD
 
 
 @pytest.fixture(scope="module")
 def states():
-    """Random configurations (for M and h) and perturbed standing states
-    with mixed pin states (for a step), as float32 numpy."""
-    rng = np.random.default_rng(0)
-    f32 = lambda t: {k: np.asarray(v, np.float32) for k, v in t.items()}  # noqa: E731
-    config = {"base": f32(_random_base(rng)),
-              "q": rng.uniform(-0.8, 0.8, (B, 4, 3)).astype(np.float32),
-              "qd": (0.5 * rng.normal(size=(B, 4, 3))).astype(np.float32)}
-    stand = _jax_tree(jsim.default_stance_state(JModel.simpledog()))
-    sim = jax.tree_util.tree_map(
-        lambda a: np.broadcast_to(a, (B,) + a.shape).copy(), stand)
-    r = sim["robot"]
-    r["base"]["linear_velocity"] += 0.1 * rng.normal(size=(B, 3)).astype(np.float32)
-    r["base"]["angular_velocity"] += 0.2 * rng.normal(size=(B, 3)).astype(np.float32)
-    r["qd"] += 0.3 * rng.normal(size=(B, 4, 3)).astype(np.float32)
-    r["support"] = SUPPORT.copy()
-    tau = (20.0 * rng.normal(size=(B, 4, 3))).astype(np.float32)
-    tau[..., 1] -= 30.0
-    return {"config": config, "sim": sim, "tau": tau}
+    return make_refs.articulated_inputs()
 
 
-def _jax_base(tree, i):
-    return JBase(**{k: jnp.asarray(v[i]) for k, v in tree.items()})
+@pytest.fixture(scope="module")
+def refs():
+    with np.load(REFS) as f:
+        return {k[len("articulated/"):]: f[k] for k in f.files
+                if k.startswith("articulated/")}
 
 
 def _port_base(tree):
     return BaseState(**{k: torch.from_numpy(np.asarray(v)) for k, v in tree.items()})
 
 
-def _jax_sim(tree, i):
-    r = tree["robot"]
-    robot = JRobot(base=_jax_base(r["base"], i),
-                   **{k: jnp.asarray(v[i]) for k, v in r.items() if k != "base"})
-    return jsim.SimState(robot=robot, feet_world=jnp.asarray(tree["feet_world"][i]),
-                         time=jnp.asarray(tree["time"][i]))
-
-
-@pytest.mark.parametrize("what", ["mass_matrix", "bias_forces"])
-def test_dynamics_terms_match_jax(states, what):
+def check_dynamics_terms(refs, states, what):
     c = states["config"]
-    jm, tm = JModel.simpledog(), RobotModel.simpledog("cpu")
+    tm = RobotModel.simpledog("cpu")
     base = _port_base(c["base"])
     q, qd = torch.from_numpy(c["q"]), torch.from_numpy(c["qd"])
     got = (tart.mass_matrix(tm, base, q) if what == "mass_matrix"
            else tart.bias_forces(tm, base, q, qd)).numpy()
     for i in range(B):
-        jb = _jax_base(c["base"], i)
-        want = np.asarray(
-            jart.mass_matrix(jm, jb, jnp.asarray(c["q"][i])) if what == "mass_matrix"
-            else jart.bias_forces(jm, jb, jnp.asarray(c["q"][i]),
-                                  jnp.asarray(c["qd"][i])))
+        want = refs[what][i]
         np.testing.assert_allclose(got[i], want, rtol=0,
                                    atol=1e-5 * np.abs(want).max())
+
+
+def check_step(refs, states, friction_mu):
+    tm = RobotModel.simpledog("cpu")
+    sim = convert.from_numpy(SimState, states["sim"], "cpu")
+    out = tart.step(tm, sim, torch.from_numpy(states["tau"]), 0.0025,
+                    support=torch.from_numpy(SUPPORT_CMD), friction_mu=friction_mu)
+    got = convert.to_numpy(out)
+    tag = "stick" if friction_mu is None else "slide"
+    ref = lambda k: refs[f"step_{tag}/{k}"]  # noqa: E731
+    r = got["robot"]
+    np.testing.assert_array_equal(r["support"], ref("robot/support"))
+    for k in ("position", "quaternion", "linear_velocity", "angular_velocity"):
+        np.testing.assert_allclose(r["base"][k], ref(f"robot/base/{k}"),
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(r["q"], ref("robot/q"), atol=1e-6)
+    np.testing.assert_allclose(r["qd"], ref("robot/qd"), atol=1e-4)
+    np.testing.assert_allclose(got["feet_world"], ref("feet_world"), atol=1e-6)
+
+
+def check_free_flight(refs, states):
+    c = states["config"]
+    tm = RobotModel.simpledog("cpu")
+    got = tart.unconstrained_accel(tm, _port_base(c["base"]), torch.from_numpy(c["q"]),
+                                   torch.from_numpy(c["qd"]),
+                                   torch.from_numpy(states["tau"])).numpy()
+    for i in range(B):
+        want = refs["free_flight"][i]
+        np.testing.assert_allclose(got[i], want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("what", ["mass_matrix", "bias_forces"])
+def test_dynamics_terms_match_jax(refs, states, what):
+    check_dynamics_terms(refs, states, what)
 
 
 def test_mass_matrix_structure():
@@ -148,27 +136,10 @@ def test_mass_matrix_structure():
 
 
 @pytest.mark.parametrize("friction_mu", [None, 0.05])
-def test_step_matches_jax(states, friction_mu):
+def test_step_matches_jax(refs, states, friction_mu):
     """One 2.5 ms step (2 substeps) from perturbed standing states with
     mixed pins and commands, rigid stick and a μ = 0.05 cone."""
-    jm, tm = JModel.simpledog(), RobotModel.simpledog("cpu")
-    sim = convert.from_numpy(SimState, states["sim"], "cpu")
-    out = tart.step(tm, sim, torch.from_numpy(states["tau"]), 0.0025,
-                    support=torch.from_numpy(SUPPORT_CMD), friction_mu=friction_mu)
-    got = convert.to_numpy(out)
-    for i in range(B):
-        ref = _jax_tree(jart.step(
-            jm, _jax_sim(states["sim"], i), jnp.asarray(states["tau"][i]), 0.0025,
-            support=jnp.asarray(SUPPORT_CMD[i]), friction_mu=friction_mu))
-        r, g = ref["robot"], got["robot"]
-        np.testing.assert_array_equal(g["support"][i], r["support"])
-        for k in ("position", "quaternion", "linear_velocity", "angular_velocity"):
-            np.testing.assert_allclose(g["base"][k][i], r["base"][k], atol=1e-5,
-                                       err_msg=k)
-        np.testing.assert_allclose(g["q"][i], r["q"], atol=1e-6)
-        np.testing.assert_allclose(g["qd"][i], r["qd"], atol=1e-4)
-        np.testing.assert_allclose(got["feet_world"][i], ref["feet_world"],
-                                   atol=1e-6)
+    check_step(refs, states, friction_mu)
 
 
 def test_friction_cone_changes_the_step(states):
@@ -182,19 +153,21 @@ def test_friction_cone_changes_the_step(states):
     assert (stick.robot.qd - slide.robot.qd).abs().max() > 1e-3
 
 
-def test_free_flight_accel_matches_jax(states):
-    c = states["config"]
-    jm, tm = JModel.simpledog(), RobotModel.simpledog("cpu")
-    tau = states["tau"]
-    got = tart.unconstrained_accel(tm, _port_base(c["base"]), torch.from_numpy(c["q"]),
-                                   torch.from_numpy(c["qd"]),
-                                   torch.from_numpy(tau)).numpy()
-    for i in range(B):
-        want = np.asarray(jart.unconstrained_accel(
-            jm, _jax_base(c["base"], i), jnp.asarray(c["q"][i]),
-            jnp.asarray(c["qd"][i]), jnp.asarray(tau[i])))
-        np.testing.assert_allclose(got[i], want, rtol=0,
-                                   atol=1e-4 * np.abs(want).max())
+def test_free_flight_accel_matches_jax(refs, states):
+    check_free_flight(refs, states)
+
+
+@pytest.mark.slow
+def test_references_match_live_jax(states):
+    """Recomputes the JAX references (eager JAX, per scenario) and repeats
+    every check against them."""
+    live = {k: np.asarray(v)
+            for k, v in make_refs.articulated_references().items()}
+    for what in ("mass_matrix", "bias_forces"):
+        check_dynamics_terms(live, states, what)
+    for mu in make_refs.ART_MU:
+        check_step(live, states, mu)
+    check_free_flight(live, states)
 
 
 def test_convert_round_trips_articulated_state_and_qp_solution(states):

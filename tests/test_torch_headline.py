@@ -8,7 +8,12 @@ tile, ``tail_proof`` and the quality block vs ``bench.py``'s, and, on
 and ``distribute`` vs the JAX ``distribute`` (the reference that test
 holds the JAX batched solve against).
 
-The test may import ``bench`` (which imports JAX); the port may not.
+The JAX outputs are the committed ``headline/`` section of
+``tests/data/torch_port_slice2_refs.npz``
+(``scripts/make_torch_port_references.py``); ``-m slow`` recomputes them
+live and repeats every check. ``bench.tail_proof`` runs live (numpy and
+scipy). The test may import ``bench`` (which imports JAX); the port may
+not.
 
 Tolerances: problem data agree to float32 rounding of the VMC wrench
 (b within 1e-3 N of ~1e3 N, everything else exactly). Solutions are
@@ -21,6 +26,9 @@ gates).
 
 from __future__ import annotations
 
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,14 +36,6 @@ import pytest
 import torch
 
 import bench
-from quadruped_locomotion_tpu.control import force_distribution as jfd
-from quadruped_locomotion_tpu.control.vmc import compute_virtual_wrench as jvmc
-from quadruped_locomotion_tpu.ops import qp_pallas
-from quadruped_locomotion_tpu.rollout import simulator as jsim
-from quadruped_locomotion_tpu.types import (
-    BaseTarget as JBaseTarget, CfdParams as JCfd, RobotModel as JModel,
-    VmcGains as JGains,
-)
 from quadruped_locomotion_tpu_torch import headline
 from quadruped_locomotion_tpu_torch.control import force_distribution as tfd
 from quadruped_locomotion_tpu_torch.control.vmc import compute_virtual_wrench
@@ -45,33 +45,49 @@ from quadruped_locomotion_tpu_torch.types import (
     BaseTarget, CfdParams, RobotModel, VmcGains,
 )
 
+ROOT = Path(__file__).resolve().parent.parent
+REFS = ROOT / "tests" / "data" / "torch_port_slice2_refs.npz"
+sys.path.insert(0, str(ROOT / "scripts"))
+import make_torch_port_references as make_refs  # noqa: E402
+
 torch.set_num_threads(1)
 
-TILE = 1024  # one (8, 128) tile of the JAX kernel trace
+TILE = make_refs.TILE
 FIELDS = "AbSWDd"
+LF = make_refs.LOAD_FACTORS
+B_LF = make_refs.B_LF
 
 
 @pytest.fixture(scope="module")
-def batches():
-    ref = [np.asarray(a) for a in bench.build_batch(TILE)]
-    port = [t.numpy() for t in headline.build_batch(TILE, "cpu")]
-    return dict(zip(FIELDS, ref)), dict(zip(FIELDS, port))
+def refs():
+    with np.load(REFS) as f:
+        return {k[len("headline/"):]: f[k] for k in f.files
+                if k.startswith("headline/")}
 
 
 @pytest.fixture(scope="module")
-def solved(batches):
-    """The reference batch through the JAX kernel trace and through the
-    port's wrapper (plain version on the CPU)."""
-    p = batches[0]
-    args = [p[k] for k in "ASbWDd"]
-    xe, _, _, ke = qp_pallas.solve_weighted_ls_fd_qp(
-        *map(jnp.asarray, args), iters=15, emulate=True)
+def port_batch():
+    return {k: t.numpy() for k, t in zip(FIELDS, headline.build_batch(TILE, "cpu"))}
+
+
+def _tile(refs):
+    return {k: refs[f"tile/{k}"] for k in FIELDS}
+
+
+def _solve_plain(refs):
+    """The reference tile through the port's wrapper (plain version on the
+    CPU): no kernel launch is counted."""
+    p = _tile(refs)
     fk.launches = fk.wls_launches = 0
-    xp, sp, zp, kp = fk.solve_weighted_ls_fd_qp(
-        *(torch.from_numpy(a.copy()) for a in args), iters=15)
-    assert fk.launches == 0 and fk.wls_launches == 0  # CPU: no kernel
-    return dict(x_emulated=np.asarray(xe), kkt_emulated=np.asarray(ke),
-                x=xp, s=sp, z=zp, kkt=kp)
+    out = fk.solve_weighted_ls_fd_qp(
+        *(torch.from_numpy(p[k].copy()) for k in "ASbWDd"), iters=15)
+    assert fk.launches == 0 and fk.wls_launches == 0
+    return out
+
+
+@pytest.fixture(scope="module")
+def solved(refs):
+    return _solve_plain(refs)
 
 
 def _objective64(p, x):
@@ -80,15 +96,83 @@ def _objective64(p, x):
     return (r * p["S"] * r).sum(-1) + (x * p["W"] * x).sum(-1)
 
 
-@pytest.mark.parametrize("field", list(FIELDS))
-def test_build_batch_matches_bench(batches, field):
-    ref, port = batches[0][field], batches[1][field]
+def check_build_batch(refs, port_batch, field):
+    ref, port = refs[f"tile/{field}"], port_batch[field]
     assert port.shape == ref.shape and port.dtype == ref.dtype == np.float32
     tol = 1e-3 if field == "b" else 1e-6  # b: float32 VMC rounding
     np.testing.assert_allclose(port, ref, rtol=0, atol=tol)
 
 
-def test_weighted_ls_wrapper_matches_kernel_trace(batches, solved):
+def check_wrapper_vs_trace(refs, solved):
+    p = _tile(refs)
+    x, kkt = solved[0].numpy(), solved[3].numpy()
+    ref = _objective64(p, refs["tile/x_emulated"])
+    gap = np.abs(_objective64(p, x) - ref) / (1 + np.abs(ref))
+    assert np.median(gap) <= 1e-4 and np.percentile(gap, 99) <= 1e-3, gap
+    assert np.isfinite(kkt).all() and np.percentile(kkt, 99) <= 1e-4
+    min_slack = lambda x: (np.einsum("bij,bj->bi", p["D"], x)  # noqa: E731
+                           - p["d"]).min(-1)
+    plain, trace = min_slack(x), min_slack(refs["tile/x_emulated"])
+    assert trace.min() < -1e-3  # the reference leaves violations too
+    assert np.percentile(plain, 1) >= -1e-3 and plain.min() >= -5e-2
+
+
+def _balance_torch(refs):
+    return {k: torch.from_numpy(refs[f"balance/{k}"].copy()) for k in FIELDS}
+
+
+def check_load_factors(refs, backend):
+    p = _balance_torch(refs)
+    lf = torch.from_numpy(LF).expand(B_LF, 4)
+    support = torch.ones((B_LF, 4), dtype=torch.bool)
+    fk.launches = 0
+    sol = tfd.solve_fd_qp_batched(p["A"], p["b"], p["S"], p["W"], p["D"], p["d"],
+                                  iters=25, backend=backend, load_factors=lf,
+                                  support=support)
+    first = tfd.solve_fd_qp_batched(p["A"], p["b"], p["S"], p["W"], p["D"],
+                                    p["d"], iters=25, backend=backend)
+    assert fk.launches == 0
+    A64 = refs["balance/A"].astype(np.float64)
+    x = sol.x.numpy()
+    x_ref = refs["balance/grf_distribute"].reshape(B_LF, 12)
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", A64, x),
+                               np.einsum("bij,bj->bi", A64, x_ref), atol=0.5)
+    np.testing.assert_allclose(x, x_ref, atol=2.0)
+    np.testing.assert_array_equal(x[:, 6:9], (first.x[:, 6:9] * 0.5).numpy())
+
+
+def _port_balance_state():
+    model = RobotModel.simpledog("cpu")
+    sim = tsim.default_stance_state(model, height=0.4, batch=(B_LF,))
+    target = BaseTarget.from_base(sim.robot.base)
+    base = sim.robot.base.replace(position=sim.robot.base.position
+                                  + torch.from_numpy(make_refs.balance_noise()))
+    state = sim.robot.replace(base=base)
+    vf, vt = compute_virtual_wrench(model, VmcGains.gazebo_defaults("cpu"),
+                                    state, target)
+    return model, CfdParams.defaults("cpu"), state, vf, vt
+
+
+def check_distribute(refs):
+    model, cfd, state, vf, vt = _port_balance_state()
+    single = tfd.distribute(model, cfd, state, vf, vt, iters=25)
+    res = tfd.distribute(model, cfd, state, vf, vt, iters=25,
+                         load_factors=torch.from_numpy(LF).expand(B_LF, 4))
+    np.testing.assert_allclose(res.ground_reaction.numpy(),
+                               refs["balance/grf_distribute"], atol=2.0)
+    np.testing.assert_allclose(res.virtual_wrench_realized.numpy(),
+                               refs["balance/wrench_distribute"], atol=0.5)
+    np.testing.assert_allclose(res.ground_reaction[:, 2].numpy(),
+                               0.5 * single.ground_reaction[:, 2].numpy(),
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+def test_build_batch_matches_bench(refs, port_batch, field):
+    check_build_batch(refs, port_batch, field)
+
+
+def test_weighted_ls_wrapper_matches_kernel_trace(refs, solved):
     """Objective gap median ≤ 1e-4 and p99 ≤ 1e-3 against the JAX kernel
     trace (bench.py's backend-agreement gate; observed 4.7e-6 / 2.1e-4),
     KKT p99 ≤ 1e-4 (bench.py's quality gate), finite, and Dx − d ≥ −1e-3
@@ -96,24 +180,14 @@ def test_weighted_ls_wrapper_matches_kernel_trace(batches, solved):
     under this float32 algorithm, the JAX kernel trace included (3 of
     this tile below −1e-3, worst −2.1e-3; the plain version 5, worst
     −3.6e-2 at forces of hundreds of N): the worst is held to 5e-2."""
-    p = batches[0]
-    ref = _objective64(p, solved["x_emulated"])
-    gap = np.abs(_objective64(p, solved["x"].numpy()) - ref) / (1 + np.abs(ref))
-    assert np.median(gap) <= 1e-4 and np.percentile(gap, 99) <= 1e-3, gap
-    kkt = solved["kkt"].numpy()
-    assert np.isfinite(kkt).all() and np.percentile(kkt, 99) <= 1e-4
-    min_slack = lambda x: (np.einsum("bij,bj->bi", p["D"], x)  # noqa: E731
-                           - p["d"]).min(-1)
-    plain, trace = min_slack(solved["x"].numpy()), min_slack(solved["x_emulated"])
-    assert trace.min() < -1e-3  # the reference leaves violations too
-    assert np.percentile(plain, 1) >= -1e-3 and plain.min() >= -5e-2
+    check_wrapper_vs_trace(refs, solved)
 
 
-def test_tail_proof_matches_bench(batches, solved):
+def test_tail_proof_matches_bench(refs, solved):
     """The port's copy of tail_proof returns bench.tail_proof's result on
     the same numpy inputs."""
-    p = batches[0]
-    x = solved["x"].numpy()
+    p = _tile(refs)
+    x = solved[0].numpy()
     werr = np.abs(np.einsum("bij,bj->bi", p["A"], x) - p["b"]).max(-1)
     args = [p[k] for k in FIELDS] + [x, werr]
     want = bench.tail_proof(*args, max_oracle=8)
@@ -122,12 +196,12 @@ def test_tail_proof_matches_bench(batches, solved):
     assert want[0] > 0.1 and want[3]  # a real tail, proven constraint-bound
 
 
-def test_quality_block_matches_bench_formulas(batches, solved):
+def test_quality_block_matches_bench_formulas(refs, solved):
     """KKT percentiles and the wrench error as bench.py computes them
     (jnp.einsum at HIGHEST precision)."""
-    p = batches[0]
+    p = _tile(refs)
     t = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
-    x, kkt = solved["x"], solved["kkt"]
+    x, kkt = solved[0], solved[3]
     q = headline.quality(*(t[k] for k in FIELDS), x, kkt)
     realized = jnp.einsum("bij,bj->bi", p["A"], x.numpy(),
                           precision=jax.lax.Precision.HIGHEST)
@@ -141,10 +215,10 @@ def test_quality_block_matches_bench_formulas(batches, solved):
     assert q["wrench_err_p50"] <= 0.1  # bench.py's median gate
 
 
-def test_generic_cross_check_on_cpu(batches, solved):
+def test_generic_cross_check_on_cpu(refs, solved):
     """bench.py's kernel-vs-generic objective gap, on 64 instances."""
-    t = {k: torch.from_numpy(v.copy()) for k, v in batches[0].items()}
-    gap = headline.generic_gap(*(t[k] for k in FIELDS), solved["x"], sub=64)
+    t = {k: torch.from_numpy(v.copy()) for k, v in _tile(refs).items()}
+    gap = headline.generic_gap(*(t[k] for k in FIELDS), solved[0], sub=64)
     assert gap["generic_instances"] == 64
     assert gap["generic_gap_median"] <= 1e-4 and gap["generic_gap_p99"] <= 1e-3
 
@@ -167,75 +241,19 @@ def test_roofline_counts_of_the_wrapper():
     assert fk.fd_qp_bytes(1) == 4 * (416 + 53)
 
 
-# ---------------------------------------------------------------------------
-# load factors and distribute (tests/test_balance.py's batch)
-# ---------------------------------------------------------------------------
-
-LF = np.array([1.0, 1.0, 0.5, 1.0], np.float32)
-B_LF = 4
-
-
-@pytest.fixture(scope="module")
-def balance_batch():
-    """test_balance.py::test_batched_leg_load_elimination_matches_distribute:
-    4 standing scenarios, base displaced by ±2 cm (numpy seed 7), their
-    QP data and the JAX per-scenario distribute() with load factors, the
-    reference that test holds the JAX batched solve against."""
-    model, gains, cfd = JModel.simpledog(), JGains.gazebo_defaults(), JCfd.defaults()
-    sim = jsim.default_stance_state(model, height=0.4)
-    target = JBaseTarget.from_base(sim.robot.base)
-    noise = np.random.default_rng(7).uniform(-0.02, 0.02, size=(B_LF, 3)
-                                             ).astype(np.float32)
-
-    def state(n):
-        return sim.robot.replace(base=sim.robot.base.replace(
-            position=sim.robot.base.position + n))
-
-    def build(n):
-        st = state(n)
-        return jfd.build_qp(model, cfd, st, *jvmc(model, gains, st, target))
-
-    def dist(n):
-        st = state(n)
-        r = jfd.distribute(model, cfd, st, *jvmc(model, gains, st, target),
-                           iters=25, load_factors=jnp.asarray(LF))
-        return r.ground_reaction, r.virtual_wrench_realized
-
-    A, b, S, W, D, d = jax.jit(jax.vmap(build))(jnp.asarray(noise))
-    grf, wrench = jax.jit(jax.vmap(dist))(jnp.asarray(noise))
-    prob = {k: np.asarray(v) for k, v in zip(FIELDS, (A, b, S, W, D, d))}
-    return dict(prob=prob, noise=noise, grf_distribute=np.asarray(grf),
-                wrench_distribute=np.asarray(wrench))
-
-
 @pytest.mark.parametrize("backend", ["generic", "plain"])
-def test_load_factor_double_solve_matches_jax(balance_batch, backend):
-    """The port's batched elimination on the reference's problem data:
-    realised wrench within 0.5 N and forces within 2 N of the JAX
-    distribute (test_balance.py's gates for the JAX batched solve), the
-    pinned leg exactly 0.5 × the port's own first solve, and no kernel
-    launch on the CPU."""
-    p = {k: torch.from_numpy(v.copy()) for k, v in balance_batch["prob"].items()}
-    lf = torch.from_numpy(LF).expand(B_LF, 4)
-    support = torch.ones((B_LF, 4), dtype=torch.bool)
-    fk.launches = 0
-    sol = tfd.solve_fd_qp_batched(p["A"], p["b"], p["S"], p["W"], p["D"], p["d"],
-                                  iters=25, backend=backend, load_factors=lf,
-                                  support=support)
-    first = tfd.solve_fd_qp_batched(p["A"], p["b"], p["S"], p["W"], p["D"],
-                                    p["d"], iters=25, backend=backend)
-    assert fk.launches == 0
-    A64 = balance_batch["prob"]["A"].astype(np.float64)
-    x = sol.x.numpy()
-    x_ref = balance_batch["grf_distribute"].reshape(B_LF, 12)
-    np.testing.assert_allclose(np.einsum("bij,bj->bi", A64, x),
-                               np.einsum("bij,bj->bi", A64, x_ref), atol=0.5)
-    np.testing.assert_allclose(x, x_ref, atol=2.0)
-    np.testing.assert_array_equal(x[:, 6:9], (first.x[:, 6:9] * 0.5).numpy())
+def test_load_factor_double_solve_matches_jax(refs, backend):
+    """The port's batched elimination on the reference's problem data
+    (test_balance.py's 4 scenarios, ±2 cm, numpy seed 7): realised wrench
+    within 0.5 N and forces within 2 N of the JAX distribute
+    (test_balance.py's gates for the JAX batched solve), the pinned leg
+    exactly 0.5 × the port's own first solve, no kernel launch on the
+    CPU."""
+    check_load_factors(refs, backend)
 
 
-def test_load_factors_need_support(balance_batch):
-    p = {k: torch.from_numpy(v.copy()) for k, v in balance_batch["prob"].items()}
+def test_load_factors_need_support(refs):
+    p = _balance_torch(refs)
     with pytest.raises(ValueError, match="support"):
         tfd.solve_fd_qp_batched(p["A"], p["b"], p["S"], p["W"], p["D"],
                                 p["d"], load_factors=torch.ones(B_LF, 4))
@@ -244,47 +262,27 @@ def test_load_factors_need_support(balance_batch):
                                 p["d"], backend="kernel")
 
 
-def _port_balance_state(noise):
-    model = RobotModel.simpledog("cpu")
-    sim = tsim.default_stance_state(model, height=0.4, batch=(len(noise),))
-    target = BaseTarget.from_base(sim.robot.base)
-    base = sim.robot.base.replace(
-        position=sim.robot.base.position + torch.from_numpy(noise))
-    state = sim.robot.replace(base=base)
-    vf, vt = compute_virtual_wrench(model, VmcGains.gazebo_defaults("cpu"),
-                                    state, target)
-    return model, CfdParams.defaults("cpu"), state, vf, vt
-
-
 @pytest.mark.parametrize("load_factors", [False, True])
-def test_distribute_matches_jax(balance_batch, load_factors):
+def test_distribute_matches_jax(refs, load_factors):
     """The port's distribute on its own build of the same states: with
     load factors, forces within 2 N and realised wrench within 0.5 N of
-    the JAX distribute; the pinned leg at 0.5 × the single solve; without,
-    the realised wrench matches the requested one within 0.5 N
+    the JAX distribute, the pinned leg at 0.5 × the single solve;
+    without, the realised wrench matches the requested one within 0.5 N
     (test_balance.py's statics gate)."""
-    model, cfd, state, vf, vt = _port_balance_state(balance_batch["noise"])
-    single = tfd.distribute(model, cfd, state, vf, vt, iters=25)
-    if not load_factors:
-        np.testing.assert_allclose(single.virtual_wrench_realized.numpy(),
-                                   torch.cat([vf, vt], -1).numpy(), atol=0.5)
-        assert (single.ground_reaction[..., 2] >= 10.0 - 1e-3).all()
+    if load_factors:
+        check_distribute(refs)
         return
-    res = tfd.distribute(model, cfd, state, vf, vt, iters=25,
-                         load_factors=torch.from_numpy(LF).expand(B_LF, 4))
-    np.testing.assert_allclose(res.ground_reaction.numpy(),
-                               balance_batch["grf_distribute"], atol=2.0)
-    np.testing.assert_allclose(res.virtual_wrench_realized.numpy(),
-                               balance_batch["wrench_distribute"], atol=0.5)
-    np.testing.assert_allclose(res.ground_reaction[:, 2].numpy(),
-                               0.5 * single.ground_reaction[:, 2].numpy(),
-                               atol=1e-3)
+    model, cfd, state, vf, vt = _port_balance_state()
+    single = tfd.distribute(model, cfd, state, vf, vt, iters=25)
+    np.testing.assert_allclose(single.virtual_wrench_realized.numpy(),
+                               torch.cat([vf, vt], -1).numpy(), atol=0.5)
+    assert (single.ground_reaction[..., 2] >= 10.0 - 1e-3).all()
 
 
-def test_distribute_warm_light_polish(balance_batch):
+def test_distribute_warm_light_polish():
     """The realtime levers: a warm-started 8-iteration solve with the
     light polish reaches the cold solve's realised wrench."""
-    model, cfd, state, vf, vt = _port_balance_state(balance_batch["noise"])
+    model, cfd, state, vf, vt = _port_balance_state()
     cold = tfd.distribute(model, cfd, state, vf, vt, iters=15)
     sol = cold.qp_solution
     warm = tfd.distribute(model, cfd, state, vf, vt, iters=8,
@@ -292,3 +290,16 @@ def test_distribute_warm_light_polish(balance_batch):
     np.testing.assert_allclose(warm.virtual_wrench_realized.numpy(),
                                cold.virtual_wrench_realized.numpy(), atol=0.5)
     assert warm.qp_solution.kkt_error.max() < 1e-3
+
+
+@pytest.mark.slow
+def test_references_match_live_jax(port_batch):
+    """Recomputes the JAX references (bench.build_batch, the kernel trace,
+    distribute; XLA:CPU compiles) and repeats every check against them."""
+    live = {k: np.asarray(v) for k, v in make_refs.headline_references().items()}
+    for field in FIELDS:
+        check_build_batch(live, port_batch, field)
+    check_wrapper_vs_trace(live, _solve_plain(live))
+    for backend in ("generic", "plain"):
+        check_load_factors(live, backend)
+    check_distribute(live)

@@ -2,24 +2,33 @@
 against the JAX package's ``ops/qp.py`` on the cases of
 ``tests/test_qp.py``, plus the error-free transforms its polish relies on.
 
-Inputs are made with numpy seeds and handed to both packages as float32.
-Both sides run the same fixed-iteration float32 IPM and polish, so their
-solutions agree to float32 rounding of the factorizations: 1e-4 on x
-for these well-conditioned problems (observed ~1e-7), and both meet the
-reference test's own gates against scipy (2e-3).
+Inputs are made with numpy seeds (``scripts/make_torch_port_references.py``
+holds the generators) and handed to both packages as float32. The JAX
+outputs are the committed ``qp/`` section of
+``tests/data/torch_port_slice2_refs.npz``; ``-m slow`` recomputes them
+live and repeats every check. Both sides run the same fixed-iteration
+float32 IPM and polish, so their solutions agree to float32 rounding of
+the factorizations: 1e-4 on x for these well-conditioned problems
+(observed ~1e-7), and both meet the reference test's own gates against
+scipy (2e-3).
 """
 
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
-from quadruped_locomotion_tpu.ops import qp as jqp
 from quadruped_locomotion_tpu_torch.ops import qp as tqp
 from test_qp import scipy_qp
+
+ROOT = Path(__file__).resolve().parent.parent
+REFS = ROOT / "tests" / "data" / "torch_port_slice2_refs.npz"
+sys.path.insert(0, str(ROOT / "scripts"))
+import make_torch_port_references as make_refs  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -30,58 +39,62 @@ def _t(a):
     return torch.as_tensor(np.asarray(a, np.float32))
 
 
-def _j(a):
-    return jnp.asarray(np.asarray(a, np.float32))
+@pytest.fixture(scope="module")
+def refs():
+    with np.load(REFS) as f:
+        return {k[len("qp/"):]: f[k] for k in f.files if k.startswith("qp/")}
 
 
-def _ineq_problems():
-    """test_qp.py::test_random_inequality_qps_vs_scipy, seeds 0-5."""
-    out = []
-    for seed in range(6):
-        rng = np.random.default_rng(seed)
-        n, mi = 6, 9
-        A = rng.normal(size=(n, n))
-        G = A @ A.T + n * np.eye(n)
-        g = rng.normal(size=n) * 2
-        D = rng.normal(size=(mi, n))
-        d = rng.uniform(-1.0, 0.2, size=mi)
-        out.append((G, g, D, d))
-    return [np.stack(a) for a in zip(*out)]
+@pytest.fixture(scope="module")
+def ineq():
+    """The port's solutions of the six inequality QPs (one batched call)."""
+    G, g, D, d = make_refs.ineq_problems()
+    return tqp.solve_qp(*map(_t, (G, g, D, d)), iters=30)
 
 
-def _eq_problems():
-    """test_qp.py::test_random_equality_qps_vs_scipy, seeds 100-102."""
-    out = []
-    for seed in range(3):
-        rng = np.random.default_rng(seed + 100)
-        n, mi, me = 6, 8, 2
-        A = rng.normal(size=(n, n))
-        G = A @ A.T + n * np.eye(n)
-        g = rng.normal(size=n)
-        D = rng.normal(size=(mi, n))
-        d = rng.uniform(-1.5, -0.5, size=mi)
-        C = rng.normal(size=(me, n))
-        c = C @ np.zeros(n)
-        out.append((G, g, D, d, C, c))
-    return [np.stack(a) for a in zip(*out)]
-
-
-def test_quadprogpp_worked_example():
-    """x = [1, 2], f = 12, as the reference's documented example, and the
-    same point as the JAX solver."""
-    G = np.array([[4.0, -2.0], [-2.0, 4.0]])
-    g = np.array([6.0, 0.0])
-    C, c = np.array([[1.0, 1.0]]), np.array([3.0])
-    D = np.array([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]])
-    d = np.array([0.0, 0.0, 2.0])
-    sol = tqp.solve_qp(*map(_t, (G, g, D, d)), C=_t(C), c=_t(c))
+def check_worked_example(refs):
+    w = make_refs.worked_example()
+    sol = tqp.solve_qp(*(_t(w[k]) for k in "GgDd"), C=_t(w["C"]), c=_t(w["c"]))
     x = sol.x.numpy()
     np.testing.assert_allclose(x, [1.0, 2.0], atol=1e-4)
+    G, g = w["G"], w["g"]
     np.testing.assert_allclose(0.5 * x @ G @ x + g @ x, 12.0, atol=1e-3)
-    ref = jqp.solve_qp(*map(_j, (G, g, D, d)), C=_j(C), c=_j(c))
-    np.testing.assert_allclose(x, np.asarray(ref.x), atol=X_TOL)
-    np.testing.assert_allclose(sol.y.numpy(), np.asarray(ref.y), atol=1e-3)
+    np.testing.assert_allclose(x, refs["worked/x"], atol=X_TOL)
+    np.testing.assert_allclose(sol.y.numpy(), refs["worked/y"], atol=1e-3)
     assert sol.x.shape == (2,) and sol.kkt_error.shape == ()
+
+
+def check_inequality(refs, port, seed):
+    G, g, D, d = make_refs.ineq_problems()
+    x = port.x.numpy()[seed]
+    np.testing.assert_allclose(x, refs["ineq/x"][seed], atol=X_TOL)
+    np.testing.assert_allclose(x, scipy_qp(G[seed], g[seed], D[seed], d[seed]),
+                               atol=2e-3)
+    assert port.iterations[seed] == int(refs["ineq/iterations"][seed])
+
+
+def check_equality(refs, seed):
+    G, g, D, d, C, c = (a[seed] for a in make_refs.eq_problems())
+    sol = tqp.solve_qp(*map(_t, (G, g, D, d)), C=_t(C), c=_t(c), iters=30)
+    np.testing.assert_allclose(sol.x.numpy(), refs["eq/x"][seed], atol=X_TOL)
+    np.testing.assert_allclose(sol.x.numpy(), scipy_qp(G, g, D, d, C, c),
+                               atol=2e-3)
+
+
+def check_warm_light(refs, port):
+    """An 8-iteration warm start from each side's own cold solution with
+    the light polish."""
+    G, g, D, d = make_refs.ineq_problems()
+    sol = tqp.solve_qp(*map(_t, (G, g, D, d)), iters=8, warm=(port.x, port.z),
+                       polish="light")
+    np.testing.assert_allclose(sol.x.numpy(), refs["warm_light/x"], atol=X_TOL)
+    assert sol.kkt_error.max() < 1e-4
+
+
+def test_quadprogpp_worked_example(refs):
+    """x = [1, 2], f = 12, as the reference's documented example, and the
+    same point as the JAX solver."""
+    check_worked_example(refs)
 
 
 def test_unconstrained_matches_linear_solve():
@@ -93,37 +106,19 @@ def test_unconstrained_matches_linear_solve():
     np.testing.assert_allclose(sol.x.numpy(), np.linalg.solve(G, -g), atol=1e-4)
 
 
-@pytest.fixture(scope="module")
-def ineq():
-    G, g, D, d = _ineq_problems()
-    port = tqp.solve_qp(*map(_t, (G, g, D, d)), iters=30)
-    ref = jax.vmap(lambda *a: jqp.solve_qp(*a, iters=30))(*map(_j, (G, g, D, d)))
-    return (G, g, D, d), port, ref
-
-
 @pytest.mark.parametrize("seed", range(6))
-def test_random_inequality_qps(ineq, seed):
-    (G, g, D, d), port, ref = ineq
-    x = port.x.numpy()[seed]
-    np.testing.assert_allclose(x, np.asarray(ref.x)[seed], atol=X_TOL)
-    np.testing.assert_allclose(x, scipy_qp(G[seed], g[seed], D[seed], d[seed]),
-                               atol=2e-3)
-    assert port.iterations[seed] == int(np.asarray(ref.iterations)[seed])
+def test_random_inequality_qps(refs, ineq, seed):
+    check_inequality(refs, ineq, seed)
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_random_equality_qps(seed):
-    G, g, D, d, C, c = (a[seed] for a in _eq_problems())
-    sol = tqp.solve_qp(*map(_t, (G, g, D, d)), C=_t(C), c=_t(c), iters=30)
-    ref = jqp.solve_qp(*map(_j, (G, g, D, d)), C=_j(C), c=_j(c), iters=30)
-    np.testing.assert_allclose(sol.x.numpy(), np.asarray(ref.x), atol=X_TOL)
-    np.testing.assert_allclose(sol.x.numpy(), scipy_qp(G, g, D, d, C, c),
-                               atol=2e-3)
+def test_random_equality_qps(refs, seed):
+    check_equality(refs, seed)
 
 
 def test_equality_batch_matches_single_solves():
     """Leading batch dims: one batched call gives each instance's answer."""
-    G, g, D, d, C, c = _eq_problems()
+    G, g, D, d, C, c = make_refs.eq_problems()
     batched = tqp.solve_qp(*map(_t, (G, g, D, d)), C=_t(C), c=_t(c), iters=30)
     for i in range(len(G)):
         one = tqp.solve_qp(*map(_t, (G[i], g[i], D[i], d[i])), C=_t(C[i]),
@@ -159,17 +154,8 @@ def test_masked_disabled_rows():
     np.testing.assert_allclose(sol1.x.numpy(), sol2.x.numpy(), atol=1e-4)
 
 
-def test_warm_start_light_polish_matches_jax(ineq):
-    """An 8-iteration warm start from the cold solution with the light
-    polish, on both sides."""
-    (G, g, D, d), port, ref = ineq
-    sol = tqp.solve_qp(*map(_t, (G, g, D, d)), iters=8, warm=(port.x, port.z),
-                       polish="light")
-    ref_w = jax.vmap(lambda G, g, D, d, xw, zw: jqp.solve_qp(
-        G, g, D, d, iters=8, warm=(xw, zw), polish="light"))(
-        *map(_j, (G, g, D, d)), ref.x, ref.z)
-    np.testing.assert_allclose(sol.x.numpy(), np.asarray(ref_w.x), atol=X_TOL)
-    assert sol.kkt_error.max() < 1e-4
+def test_warm_start_light_polish_matches_jax(refs, ineq):
+    check_warm_light(refs, ineq)
 
 
 def test_weighted_ls_formulation():
@@ -229,3 +215,16 @@ def test_failed_cholesky_is_nan_not_an_error():
     L = tqp._cholesky(M)
     assert torch.equal(L[0], torch.eye(3))
     assert torch.isnan(L[1]).all()
+
+
+@pytest.mark.slow
+def test_references_match_live_jax(ineq):
+    """Recomputes the JAX references (XLA:CPU compiles) and repeats every
+    check against them."""
+    live = {k: np.asarray(v) for k, v in make_refs.qp_references().items()}
+    check_worked_example(live)
+    for seed in range(6):
+        check_inequality(live, ineq, seed)
+    for seed in range(3):
+        check_equality(live, seed)
+    check_warm_light(live, ineq)
