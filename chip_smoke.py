@@ -9,15 +9,18 @@ Phases, each of which raises (exit code 1) when a gate fails:
 
 1. The card line (``nvidia-smi``), torch / CUDA / nvcc versions.
 2. Build ``quadruped_locomotion_tpu_torch/csrc/fd_qp_ipm.cu`` with nvcc
-   (``-Xptxas -v``: registers and spills are printed).
+   (``-Xptxas -v``): prints registers, shared memory, stack frame and
+   spill bytes, and fails unless the spill stores and loads are 0 bytes.
 3. Kernel vs ``solve_fd_qp_plain`` on the card at B = 4096: seeded
    stance QPs from the port's own ``build_qp`` (±3 cm base noise) and
    seeded random positive-definite QPs. Gates: relative objective gap
    median <= 1e-4 and p99 <= 1e-3, kernel KKT p99 <= 1e-3, finite
    outputs, Dx - d >= -1e-3 on 99 % of the instances and nowhere more
    than 1e-3 below the plain version's worst (the instances outside are
-   printed). Times the kernel (CUDA events), the wrapper's (B, E) ->
-   (E, B) transposes and the plain version.
+   printed); instance 0 solved alone gives its in-batch answer bit for
+   bit. Prints the launch geometry (blocks, warps per instance) and times
+   the kernel through ``solve_fd_qp`` at B = 4096 and at B = 1 (the
+   400 Hz controller's batch) with CUDA events, and the plain version.
 4. The massless main path: ``rollout(plant="massless")`` over B = 4096
    trot scenarios for ``--ticks`` planner ticks (default 100). Gates:
    exactly 4 kernel launches per tick, finite telemetry, upright fraction
@@ -44,14 +47,17 @@ Phases, each of which raises (exit code 1) when a gate fails:
    default plant) over B = 4096 trot scenarios for ``--art-ticks``
    planner ticks (default 50). Gates: 4 launches per tick, finite
    telemetry, upright fraction >= 0.99 at the end, a 5-tick run through
-   the plain QP within 1e-3 m of the kernel run.
+   the plain QP within 1e-3 m of the kernel run; the rollout's worst-KKT
+   QP, re-solved alone, gives the kernel's in-rollout answer again.
 8. Latency at B = 1 (bench.py's ``_latency_measure``): 25-tick chunks
    through the kernel with plant "none" and "articulated"; per-control-
    tick p50 / p99 ms over the chunks, recorded, not gated.
 
-``--dump PATH`` writes the QPs that the gates single out, with the
-kernel's answers, to an .npz (``tests/test_torch_fd_qp.py`` holds the
-committed one against the JAX solvers).
+``--dump PATH`` writes the QPs that the gates single out (the phase-3
+Dx >= d violators, both rollouts' worst-KKT QPs, the headline's
+worst-KKT instances), with the kernel's answers, to an .npz
+(``tests/test_torch_fd_qp.py`` holds the committed one against the JAX
+solvers).
 
 The line before the last is the ``{"kernels": [...]}`` record, whose
 launch counts sum every main-path phase (graph replays included, the
@@ -243,34 +249,44 @@ def check_kernel(batch: int, device, dump: dict | None = None) -> dict:
             and res["slack_min"] >= min(res["slack_min_plain"], 0.0) - 1e-3):
         raise AssertionError(f"kernel violates Dx >= d: {res}")
 
-    # timing: the wrapper, the kernel alone on entry-major inputs, the
-    # transposes alone, and the plain version (CUDA events, warm)
+    # an instance's arithmetic does not depend on B or on its position
+    one = [t[:1].contiguous() for t in (G, g, D, d)]
+    x1, _, _, k1 = fk.solve_fd_qp(*one)
+    if not (torch.equal(x1[0], xk[0]) and torch.equal(k1[0], kk[0])):
+        raise AssertionError("instance 0 solved alone differs from its "
+                             "in-batch answer")
+
+    # timing through solve_fd_qp at B and at B = 1, in turns, and the plain
+    # version (CUDA events, warm)
     B = batch
-    em = (G.reshape(B, -1).t().contiguous(), g.t().contiguous(),
-          D.reshape(B, -1).t().contiguous(), d.t().contiguous())
-    wrapper = lambda: cuda_ms(lambda: fk.solve_fd_qp(G, g, D, d), 50)  # noqa: E731
-    kernel = lambda: cuda_ms(lambda: fk.solve_fd_qp_entry_major(*em), 50)  # noqa: E731
-    runs = [wrapper(), kernel(), kernel(), wrapper()]  # in turns
-    ms_wrapper = (runs[0] + runs[3]) / 2
-    ms_kernel = (runs[1] + runs[2]) / 2
-    ms_transpose = cuda_ms(lambda: (
-        G.reshape(B, -1).t().contiguous(), g.t().contiguous(),
-        D.reshape(B, -1).t().contiguous(), d.t().contiguous()), 50)
+    build = fk.build_kernel()
+    per_block = build.threads_per_block // build.lanes_per_instance
+    geometry = dict(threads_per_block=build.threads_per_block,
+                    warps_per_instance=build.lanes_per_instance / 32,
+                    instances_per_block=per_block,
+                    blocks=-(-B // per_block))
+    full = lambda: cuda_ms(lambda: fk.solve_fd_qp(G, g, D, d), 50)  # noqa: E731
+    single = lambda: cuda_ms(lambda: fk.solve_fd_qp(*one), 50)  # noqa: E731
+    runs = [full(), single(), single(), full()]
+    ms_kernel = (runs[0] + runs[3]) / 2
+    ms_b1 = (runs[1] + runs[2]) / 2
     ms_plain = cuda_ms(lambda: fk.solve_fd_qp_plain(G, g, D, d), 5, warmup=1)
     flops = fk.fd_qp_flops() * B
     nbytes = fk.fd_qp_bytes(B)
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    res.update(ms_wrapper=ms_wrapper, ms_kernel=ms_kernel,
-               ms_transpose=ms_transpose, ms_plain=ms_plain, flops=flops,
-               bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"fd_qp_ipm at B={B}: kernel {ms_kernel:.4f} ms, wrapper "
-        f"{ms_wrapper:.4f} ms, transposes {ms_transpose:.4f} ms, plain "
-        f"{ms_plain:.3f} ms; bound {res['bound_ms'] * 1e3:.2f} us "
-        f"({flops:.3e} flop / 67 TFLOP/s = {t_ops * 1e3:.2f} us, "
-        f"{nbytes} B / 3.35 TB/s = {t_bytes * 1e3:.2f} us); no single "
-        f"PyTorch call solves this QP, so there is no library time; runs "
-        f"wrapper, kernel, kernel, wrapper: "
+    res.update(ms_kernel=ms_kernel, ms_b1=ms_b1, ms_plain=ms_plain,
+               flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               geometry=geometry)
+    log(f"fd_qp_ipm launch at B={B}: {geometry['blocks']} blocks of "
+        f"{build.threads_per_block} threads, {geometry['warps_per_instance']:g} "
+        f"warp per instance, {per_block} instances per block; at B=1: 1 block")
+    log(f"fd_qp_ipm through solve_fd_qp: B={B} {ms_kernel:.4f} ms, B=1 "
+        f"{ms_b1:.4f} ms; plain {ms_plain:.3f} ms at B={B}; bound "
+        f"{res['bound_ms'] * 1e3:.2f} us ({flops:.3e} flop / 67 TFLOP/s = "
+        f"{t_ops * 1e3:.2f} us, {nbytes} B / 3.35 TB/s = "
+        f"{t_bytes * 1e3:.2f} us); no single PyTorch call solves this QP, so "
+        f"there is no library time; runs B={B}, 1, 1, {B}: "
         + ", ".join(f"{r:.4f}" for r in runs) + " ms")
     return res
 
@@ -340,10 +356,11 @@ class WorstQp:
         return x, s, z, kkt
 
 
-def check_worst_qp(worst: dict, substeps_per_tick: int, dump) -> dict:
+def check_worst_qp(worst: dict, substeps_per_tick: int, dump,
+                   key: str = "worst") -> dict:
     """Re-solve the rollout's worst QP alone through the kernel and the
     plain version on the card; the kernel must reproduce its in-rollout
-    result."""
+    result. ``--dump`` keys start with ``key``."""
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
 
     G, g, D, d = (worst[k][None].contiguous() for k in ("G", "g", "D", "d"))
@@ -361,11 +378,11 @@ def check_worst_qp(worst: dict, substeps_per_tick: int, dump) -> dict:
                slack_plain=slack(xp[0]),
                max_abs_dx_rollout=(xk[0] - worst["x"]).abs().max().item(),
                g_absmax=g.abs().max().item(), d_absmax=d.abs().max().item())
-    log("rollout's worst QP re-solved alone: " + json.dumps(res))
+    log(f"rollout's worst QP ({key}) re-solved alone: " + json.dumps(res))
     if dump is not None:
-        dump.update({f"worst_{k}": v.cpu().numpy() for k, v in worst.items()})
-        dump.update(worst_x_plain=xp[0].cpu().numpy(),
-                    worst_kkt_plain=kp.cpu().numpy())
+        dump.update({f"{key}_{k}": v.cpu().numpy() for k, v in worst.items()})
+        dump.update({f"{key}_x_plain": xp[0].cpu().numpy(),
+                     f"{key}_kkt_plain": kp.cpu().numpy()})
     if not res["max_abs_dx_rollout"] == 0.0:
         raise AssertionError(f"kernel does not reproduce its rollout solve: {res}")
     return res
@@ -408,7 +425,7 @@ def check_main_path(batch: int, ticks: int, device, ms_kernel: float,
     if worst["kkt_rollout"] != res["kkt_max"]:
         raise AssertionError(f"worst QP tap missed the max KKT: {worst}")
 
-    short = 5
+    short = min(5, ticks)
     tel_p, wall_p = run_rollout(args, short, device, plant="massless",
                                 qp_backend="plain")
     dpos = (tel_p["base_position"] - tel["base_position"][:short]).abs().max().item()
@@ -598,14 +615,16 @@ def check_load_factors(batch: int, device) -> dict:
 # --------------------------------------------------------------------------
 
 
-def check_articulated(batch: int, ticks: int, device) -> dict:
+def check_articulated(batch: int, ticks: int, device,
+                      dump: dict | None = None) -> dict:
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
 
     args = setup_rollout(batch, device)
-    fk.launches = 0
-    tel, wall = run_rollout(args, ticks, device, plant="articulated")
-    launches = fk.launches
+    with WorstQp(fk) as tap:
+        fk.launches = 0
+        tel, wall = run_rollout(args, ticks, device, plant="articulated")
+        launches = fk.launches
     for k, v in tel.items():
         if v.is_floating_point() and not torch.isfinite(v).all():
             raise AssertionError(f"articulated telemetry {k} is not finite")
@@ -623,8 +642,11 @@ def check_articulated(batch: int, ticks: int, device) -> dict:
                              f"{ticks * cl.CONTROL_SUBSTEPS}")
     if upright < 0.99:
         raise AssertionError(f"articulated upright fraction {upright} < 0.99")
+    worst = check_worst_qp(tap.worst, cl.CONTROL_SUBSTEPS, dump, "art_worst")
+    if worst["kkt_rollout"] != res["kkt_max"]:
+        raise AssertionError(f"worst QP tap missed the max KKT: {worst}")
 
-    short = 5
+    short = min(5, ticks)
     tel_p, wall_p = run_rollout(args, short, device, plant="articulated",
                                 qp_backend="plain")
     dpos = (tel_p["base_position"]
@@ -634,7 +656,7 @@ def check_articulated(batch: int, ticks: int, device) -> dict:
     if not dpos <= 1e-3:
         raise AssertionError(f"plain and kernel articulated rollouts differ "
                              f"by {dpos} m")
-    res.update(max_dpos_plain=dpos)
+    res.update(max_dpos_plain=dpos, worst_qp=worst)
     return res
 
 
@@ -695,8 +717,9 @@ def main() -> int:
     ap.add_argument("--dump", type=Path, default=None,
                     help="write the QP instances the gates look at (the "
                          "kernel's and plain version's Dx >= d violators, "
-                         "the rollout's worst-KKT QP and the headline's "
-                         "worst-KKT instances) to this .npz")
+                         "the massless and articulated rollouts' worst-KKT "
+                         "QPs and the headline's worst-KKT instances) to "
+                         "this .npz")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -717,6 +740,10 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     log(f"built {build.path.name} in {build.seconds:.1f} s; ptxas: "
         + " | ".join(ptxas))
+    report = fk.ptxas_report(build.log)
+    log("fd_qp_ipm ptxas report: " + json.dumps(report))
+    if report["spill_store_bytes"] or report["spill_load_bytes"]:
+        raise AssertionError(f"fd_qp_ipm spills registers: {report}")
 
     dump = None if args.dump is None else {}
     phase_s = {}
@@ -732,7 +759,8 @@ def main() -> int:
               k["ms_kernel"], dump)
     h = timed("headline", check_headline, BATCH, device, dump)
     lf = timed("load_factors", check_load_factors, BATCH, device)
-    a = timed("articulated", check_articulated, BATCH, args.art_ticks, device)
+    a = timed("articulated", check_articulated, BATCH, args.art_ticks, device,
+              dump)
     lat = timed("latency", check_latency, args.latency_chunks, device)
     if dump is not None:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
@@ -749,7 +777,7 @@ def main() -> int:
         "replaces": "quadruped_locomotion_tpu/ops/qp_pallas.py:199",
         "launches": launches,
         "max_abs_err": k["max_abs_err_x"],
-        "ms": k["ms_wrapper"],
+        "ms": k["ms_kernel"],
         "plain_ms": k["ms_plain"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -57,10 +58,29 @@ class KernelBuild:
     path: Path  # the shared library
     seconds: float  # nvcc wall time of this process's build, 0.0 if reused
     log: str  # nvcc / ptxas output (-Xptxas -v: registers, spills)
+    threads_per_block: int  # launch geometry, read from the library
+    lanes_per_instance: int
+    lib: ctypes.CDLL
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, shared memory, stack frame and spill bytes of the kernel
+    from ``-Xptxas -v`` output (largest over the functions listed). Raises
+    ValueError if the log holds no such report."""
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", log)
+    used = re.findall(r"Used (\d+) registers", log)
+    smem = re.findall(r"(\d+) bytes smem", log)
+    if not frames or not used:
+        raise ValueError("no ptxas register/spill report in the build log")
+    top = lambda rows, i: max(int(r[i]) for r in rows)  # noqa: E731
+    return dict(registers=max(map(int, used)),
+                smem_bytes=max(map(int, smem), default=0),
+                stack_bytes=top(frames, 0), spill_store_bytes=top(frames, 1),
+                spill_load_bytes=top(frames, 2))
 
 
 _build: KernelBuild | None = None
-_lib = None
 
 
 def _nvcc() -> str:
@@ -73,14 +93,13 @@ def _nvcc() -> str:
     return path
 
 
-def build_kernel() -> KernelBuild:
-    """Compile ``csrc/fd_qp_ipm.cu`` into ``build/`` (once per source hash)
-    and load it. Raises if nvcc fails."""
-    global _build, _lib
-    if _build is not None:
-        return _build
+def compile_kernel(extra_flags: tuple[str, ...] = ()) -> KernelBuild:
+    """Compile ``csrc/fd_qp_ipm.cu`` with ``NVCC_FLAGS`` plus
+    ``extra_flags`` into ``build/`` (once per source and flags hash) and
+    load it. Raises if nvcc fails."""
+    flags = (*NVCC_FLAGS, *extra_flags)
     src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     so = BUILD_DIR / f"fd_qp_ipm-{digest[:16]}.so"
     log_path = so.with_suffix(".log")
     seconds = 0.0
@@ -89,7 +108,7 @@ def build_kernel() -> KernelBuild:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
@@ -106,11 +125,21 @@ def build_kernel() -> KernelBuild:
     lib.fd_qp_ipm.restype = ctypes.c_int
     lib.fd_qp_ipm_error_string.argtypes = [ctypes.c_int]
     lib.fd_qp_ipm_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    _build = KernelBuild(
+    return KernelBuild(
         path=so, seconds=seconds,
         log=log_path.read_text() if log_path.exists() else "",
+        threads_per_block=lib.fd_qp_ipm_threads_per_block(),
+        lanes_per_instance=lib.fd_qp_ipm_lanes_per_instance(),
+        lib=lib,
     )
+
+
+def build_kernel() -> KernelBuild:
+    """The kernel as :func:`launch_fd_qp` runs it: compiled with
+    ``NVCC_FLAGS`` at first use and loaded once per process."""
+    global _build
+    if _build is None:
+        _build = compile_kernel()
     return _build
 
 
@@ -143,53 +172,51 @@ def solve_fd_qp(G, g, D, d, iters: int = 15):
         return solve_fd_qp_plain(G, g, D, d, iters)
     if G.device.type != "cuda":
         raise ValueError(f"unsupported device {G.device}")
-    return _launch(G, g, D, d, iters)
+    return launch_fd_qp(G, g, D, d, iters)
 
 
-def _launch(G, g, D, d, iters):
-    B = G.shape[0]
-    # Entry-major (E, B) copies: thread b reads entry e at e*B + b, so a
-    # warp's loads of one entry are contiguous. The temporaries may be
-    # freed on return: the caching allocator reuses their memory only for
-    # work queued after this kernel on the same stream.
-    x, s, z, kkt = solve_fd_qp_entry_major(
-        G.reshape(B, N * N).t().contiguous(), g.t().contiguous(),
-        D.reshape(B, MI * N).t().contiguous(), d.t().contiguous(), iters)
-    return x.t(), s.t(), z.t(), kkt
-
-
-def solve_fd_qp_entry_major(Gt, gt, Dt, dt, iters: int = 15):
-    """One kernel launch on inputs already in the kernel's entry-major
-    layout: Gt (144, B), gt (12, B), Dt (240, B), dt (20, B), contiguous
-    float32 CUDA tensors. Returns x (12, B), s (20, B), z (20, B), kkt (B,).
-    :func:`solve_fd_qp` is this plus the (B, E) -> (E, B) transposes."""
+def launch_fd_qp(G, g, D, d, iters: int = 15):
+    """One kernel launch: G (B,12,12), g (B,12), D (B,20,12), d (B,20),
+    contiguous float32 tensors on one CUDA device, read in place (one
+    instance's entries are contiguous, so a warp's loads coalesce).
+    Returns contiguous x (B,12), s (B,20), z (B,20), kkt (B,). Raises on
+    anything else, and if the kernel cannot be built or launched."""
     global launches
-    B = Gt.shape[1]
-    for name, t, rows in (("Gt", Gt, N * N), ("gt", gt, N),
-                          ("Dt", Dt, MI * N), ("dt", dt, MI)):
-        if (tuple(t.shape) != (rows, B) or t.dtype != torch.float32
-                or t.device.type != "cuda" or not t.is_contiguous()):
+    B = G.shape[0]
+    for name, t, shape in (("G", G, (B, N, N)), ("g", g, (B, N)),
+                           ("D", D, (B, MI, N)), ("d", d, (B, MI))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device.type != "cuda" or t.device != G.device
+                or not t.is_contiguous()):
             raise ValueError(
                 f"{name} must be a contiguous float32 CUDA tensor of shape "
-                f"{(rows, B)}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    build_kernel()
-    dev = Gt.device
-    x = torch.empty((N, B), dtype=torch.float32, device=dev)
-    s = torch.empty((MI, B), dtype=torch.float32, device=dev)
-    z = torch.empty((MI, B), dtype=torch.float32, device=dev)
+                f"{shape} on G's device, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    out = run_build(build_kernel(), G, g, D, d, iters)
+    launches += 1
+    return out
+
+
+def run_build(build: KernelBuild, G, g, D, d, iters: int = 15):
+    """Launch ``build``'s kernel on inputs :func:`launch_fd_qp` has checked
+    (not counted in ``launches``; :func:`compile_kernel` builds other
+    variants for timing). Raises if the launch fails."""
+    B, dev = G.shape[0], G.device
+    x = torch.empty((B, N), dtype=torch.float32, device=dev)
+    s = torch.empty((B, MI), dtype=torch.float32, device=dev)
+    z = torch.empty((B, MI), dtype=torch.float32, device=dev)
     kkt = torch.empty((B,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib.fd_qp_ipm(
-        Gt.data_ptr(), gt.data_ptr(), Dt.data_ptr(), dt.data_ptr(),
+    rc = build.lib.fd_qp_ipm(
+        G.data_ptr(), g.data_ptr(), D.data_ptr(), d.data_ptr(),
         x.data_ptr(), s.data_ptr(), z.data_ptr(), kkt.data_ptr(),
         B, iters, stream,
     )
     if rc != 0:
         raise RuntimeError(
             "fd_qp_ipm launch failed: "
-            + _lib.fd_qp_ipm_error_string(rc).decode()
+            + build.lib.fd_qp_ipm_error_string(rc).decode()
         )
-    launches += 1
     return x, s, z, kkt
 
 
@@ -398,9 +425,10 @@ def fd_qp_flops(iters: int = 15) -> int:
     iteration and Ew = diag(w)·D once for the polish, then one
     multiply-add (2 flop) per term of each product; a division or rsqrt
     is 1; comparisons, max/min and selects are not counted. The CUDA
-    kernel re-forms some of these products where it uses them (it holds
-    neither D·diag(z/s) nor Ew); that extra work is not counted, so the
-    roofline bound this feeds is the function's, not the kernel's."""
+    kernel forms D·diag(z/s) once per iteration and Ew once, as counted
+    here; what its idle lanes compute (a warp of 32 lanes runs 12- and
+    20-row products) is not counted, so the roofline bound this feeds is
+    the function's, not the kernel's."""
 
     def chol(m):  # diagonal: j FMAs + rsqrt; below: j FMAs + 1 mul
         return sum(2 * j + 1 + (m - 1 - j) * (2 * j + 1) for j in range(m))

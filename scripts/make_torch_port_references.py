@@ -1,10 +1,12 @@
-"""Write the JAX reference outputs that the port's slice-2 CPU tests
-compare against (``tests/test_torch_{qp,headline,articulated}.py``).
+"""Write the JAX reference outputs that the port's CPU tests compare
+against: ``tests/test_torch_{qp,headline,articulated}.py`` (slice 2) and
+``tests/test_torch_fd_qp.py`` (the QP kernel).
 
 Every input is made here from numpy seeds (the tests import the same
-generators), goes through the JAX package's functions on the CPU, and
-the outputs are saved to one compressed ``.npz`` with ``/``-joined keys
-under three sections:
+generators) or from the JAX package's own test inputs, goes through the
+JAX package's functions on the CPU, and the outputs are saved to
+compressed ``.npz`` files with ``/``-joined keys. The slice-2 file
+(``tests/data/torch_port_slice2_refs.npz``) has three sections:
 
 * ``qp/``: ``ops/qp.py::solve_qp`` on the cases of ``tests/test_qp.py``
   (the quadprog++ worked example, random inequality and equality QPs, a
@@ -17,11 +19,23 @@ under three sections:
   ``bias_forces``, ``unconstrained_accel`` and one ``step`` (rigid and
   μ = 0.05) on seeded states.
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
-        [--out tests/data/torch_port_slice2_refs.npz]
+The QP-kernel file (``tests/data/torch_port_fd_qp_refs.npz``) has one
+section, ``fd_qp/``: the problems of ``tests/test_torch_fd_qp.py`` (the
+stance classes of ``tests/test_qp_pallas.py::_stance_problems`` with G, g
+formed at full precision, seeded random positive-definite QPs, then the
+QPs recorded on the card in ``tests/data/torch_port_chip_qps.npz``) and
+what the JAX kernel trace (``qp_pallas.solve_fd_qp_emulated``) and the
+XLA IPM (``jax.vmap(qp.solve_qp)``) return on them, plus the trace on 63
+ulp-perturbed copies of each rollout's worst QP (where the reference's
+own outcome is chaotic). Regenerate it after refreshing the recorded
+QPs.
 
-Takes about two minutes on a CPU, most of it XLA compilation. The tests
-recompute each section live under ``-m slow``.
+    JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
+        [--file slice2|fd_qp|all]
+
+Takes about two minutes per file on a CPU, most of it XLA compilation and
+the eager kernel trace. The tests recompute each section live under
+``-m slow``.
 """
 
 from __future__ import annotations
@@ -34,7 +48,10 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEFAULT_OUT = os.path.join(ROOT, "tests", "data", "torch_port_slice2_refs.npz")
+DATA = os.path.join(ROOT, "tests", "data")
+DEFAULT_OUT = os.path.join(DATA, "torch_port_slice2_refs.npz")
+FD_QP_OUT = os.path.join(DATA, "torch_port_fd_qp_refs.npz")
+CHIP_QPS = os.path.join(DATA, "torch_port_chip_qps.npz")
 
 TILE = 1024  # one (8, 128) tile of the JAX kernel trace
 LOAD_FACTORS = np.array([1.0, 1.0, 0.5, 1.0], np.float32)
@@ -45,6 +62,15 @@ ART_SUPPORT = np.array([[1, 1, 1, 1], [1, 0, 1, 1], [0, 1, 1, 0], [1, 1, 1, 1]],
 ART_SUPPORT_CMD = np.array([[1, 1, 1, 1], [1, 1, 1, 1], [0, 1, 1, 0],
                             [1, 0, 0, 1]], bool)
 ART_MU = (None, 0.05)
+FD_ITERS = 15
+FD_N_RANDOM = 8
+# rows of the recorded chip QPs, in order: chip_smoke.py's --dump prefixes
+FD_CHIP_ROWS = {"chip_violators": "violators", "rollout_worst": "worst",
+                "articulated_worst": "art_worst"}
+# the rows (one QP each) whose outcome is chaotic: the kernel trace also
+# runs on FD_ENSEMBLE - 1 copies with every entry moved by -1, 0 or +1 ulp
+FD_ENSEMBLE_ROWS = ("rollout_worst", "articulated_worst")
+FD_ENSEMBLE = 64
 
 
 def _tree(obj):
@@ -112,6 +138,18 @@ def balance_noise():
     """tests/test_balance.py's ±2 cm base offsets (numpy seed 7)."""
     return np.random.default_rng(7).uniform(-0.02, 0.02, size=(B_LF, 3)
                                             ).astype(np.float32)
+
+
+def fd_random_problems():
+    """Seeded random positive-definite QPs (G, g, D, d) of the QP-kernel
+    tests, 12 variables and 20 rows (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    M = rng.normal(size=(FD_N_RANDOM, 12, 12))
+    G = np.einsum("bij,bik->bjk", M, M) + 3 * np.eye(12)
+    g = rng.normal(size=(FD_N_RANDOM, 12))
+    D = rng.normal(size=(FD_N_RANDOM, 20, 12))
+    d = rng.normal(size=(FD_N_RANDOM, 20)) - 1.0
+    return G, g, D, d
 
 
 def articulated_inputs():
@@ -265,26 +303,113 @@ def articulated_references() -> dict:
     return refs
 
 
+def fd_qp_problems() -> dict:
+    """(G, g, D, d) float32 over every row, the stance rows' (A, S, b, W),
+    and ``rows/<name>`` = [start, stop) for the row groups ``stance``,
+    ``random`` and those of ``FD_CHIP_ROWS``."""
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_qp_pallas import _stance_problems
+
+    A, b, S, W, D, d = (np.asarray(a) for a in _stance_problems())
+    with jax.default_matmul_precision("highest"):
+        SA = A * S[..., :, None]
+        G = 2.0 * jnp.einsum("bij,bik->bjk", A, SA) + jax.vmap(jnp.diag)(W)
+        g = -2.0 * jnp.einsum("bij,bi->bj", SA, b)
+    groups = [("stance", (G, g, D, d)), ("random", fd_random_problems())]
+    with np.load(CHIP_QPS) as chip:
+        for name, key in FD_CHIP_ROWS.items():
+            rows = [chip[f"{key}_{k}"] for k in ("G", "g", "D", "d")]
+            if rows[0].ndim == 2:  # one QP
+                rows = [r[None] for r in rows]
+            groups.append((name, rows))
+    out, start = {}, 0
+    for name, rows in groups:
+        out[f"rows/{name}"] = np.array([start, start + len(rows[0])])
+        start += len(rows[0])
+    for i, k in enumerate("GgDd"):
+        out[k] = np.concatenate([np.asarray(r[i]) for _, r in groups]
+                                ).astype(np.float32)
+    out.update(A=A, S=S, b=b, W=W)
+    return out
+
+
+def fd_ulp_ensemble(p: dict) -> dict:
+    """(G, g, D, d) of FD_ENSEMBLE - 1 perturbed copies of each row of
+    FD_ENSEMBLE_ROWS, in that order: every entry moved by -1, 0 or +1 ulp
+    (numpy seed 1)."""
+    rng = np.random.default_rng(1)
+    out = {k: [] for k in "GgDd"}
+    for name in FD_ENSEMBLE_ROWS:
+        i = int(p[f"rows/{name}"][0])
+        for _ in range(FD_ENSEMBLE - 1):
+            for k in "GgDd":
+                a = p[k][i]
+                step = rng.integers(-1, 2, a.shape)
+                toward = np.where(step > 0, np.float32(np.inf), np.float32(-np.inf))
+                out[k].append(np.where(step == 0, a, np.nextafter(a, toward)))
+    return {k: np.stack(v).astype(np.float32) for k, v in out.items()}
+
+
+def fd_qp_references() -> dict:
+    """``problems/...`` (:func:`fd_qp_problems`), the JAX kernel trace's and
+    the XLA IPM's answers on them, and ``ensemble/<rows>/{x,kkt}``: the
+    trace on each row of FD_ENSEMBLE_ROWS (member 0) and on its
+    :func:`fd_ulp_ensemble` copies, all in one trace call."""
+    import jax
+
+    from quadruped_locomotion_tpu.ops import qp, qp_pallas
+
+    p = fd_qp_problems()
+    n = len(p["G"])
+    ens = fd_ulp_ensemble(p)
+    G, g, D, d = (np.concatenate([p[k], ens[k]]) for k in "GgDd")
+    emu = [np.asarray(a) for a in qp_pallas.solve_fd_qp_emulated(
+        G, g, D, d, iters=FD_ITERS)]
+    xla = jax.jit(jax.vmap(lambda G, g, D, d: qp.solve_qp(
+        G, g, D, d, iters=FD_ITERS)))(*(p[k] for k in "GgDd"))
+    out = {f"problems/{k}": v for k, v in p.items()}
+    out.update({"emulated/x": emu[0][:n], "emulated/kkt": emu[3][:n],
+                "xla/x": xla.x})
+    for j, name in enumerate(FD_ENSEMBLE_ROWS):
+        i = int(p[f"rows/{name}"][0])
+        copies = slice(n + j * (FD_ENSEMBLE - 1), n + (j + 1) * (FD_ENSEMBLE - 1))
+        for key, a in (("x", emu[0]), ("kkt", emu[3])):
+            out[f"ensemble/{name}/{key}"] = np.concatenate([a[i:i + 1],
+                                                            a[copies]])
+    return out
+
+
 SECTIONS = {"qp": qp_references, "headline": headline_references,
-            "articulated": articulated_references}
+            "articulated": articulated_references,
+            "fd_qp": fd_qp_references}
+FILES = {"slice2": (DEFAULT_OUT, ("qp", "headline", "articulated")),
+         "fd_qp": (FD_QP_OUT, ("fd_qp",))}
 
 
-def make_references() -> dict:
+def make_references(sections) -> dict:
     out = {}
-    for name, fn in SECTIONS.items():
-        out.update({f"{name}/{k}": np.asarray(v) for k, v in fn().items()})
+    for name in sections:
+        out.update({f"{name}/{k}": np.asarray(v)
+                    for k, v in SECTIONS[name]().items()})
     return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--file", default="all", choices=(*FILES, "all"))
     args = ap.parse_args()
-    refs = make_references()
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    np.savez_compressed(args.out, **refs)
-    print(f"wrote {args.out}: {len(refs)} arrays, "
-          f"{os.path.getsize(args.out)} bytes")
+    sys.path.insert(0, ROOT)
+    for name, (path, sections) in FILES.items():
+        if args.file not in (name, "all"):
+            continue
+        refs = make_references(sections)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.savez_compressed(path, **refs)
+        print(f"wrote {path}: {len(refs)} arrays, "
+              f"{os.path.getsize(path)} bytes")
 
 
 if __name__ == "__main__":
