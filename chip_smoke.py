@@ -260,10 +260,9 @@ def check_kernel(batch: int, device, dump: dict | None = None) -> dict:
     # version (CUDA events, warm)
     B = batch
     build = fk.build_kernel()
-    per_block = build.threads_per_block // build.lanes_per_instance
+    per_block = build.threads_per_block // 32  # one warp per instance
     geometry = dict(threads_per_block=build.threads_per_block,
-                    warps_per_instance=build.lanes_per_instance / 32,
-                    instances_per_block=per_block,
+                    warps_per_instance=1, instances_per_block=per_block,
                     blocks=-(-B // per_block))
     full = lambda: cuda_ms(lambda: fk.solve_fd_qp(G, g, D, d), 50)  # noqa: E731
     single = lambda: cuda_ms(lambda: fk.solve_fd_qp(*one), 50)  # noqa: E731

@@ -68,18 +68,7 @@ constexpr float DELTA = 1e-6f;           // Tikhonov regularization
 constexpr float S_FLOOR = 1e-9f;
 constexpr float TOL = 1e-6f;
 constexpr float INV_MI = 1.0f / MI;
-
-// Launch settings, overridable with -D to time other builds
-// (scripts/bench_fd_qp_variants.py): warps (instances) per block, and blocks
-// each SM must be able to hold at once, which caps the registers per thread
-// at 65,536 / (32 * FD_QP_WARPS * FD_QP_MIN_BLOCKS).
-#ifndef FD_QP_WARPS
-#define FD_QP_WARPS 4
-#endif
-#ifndef FD_QP_MIN_BLOCKS
-#define FD_QP_MIN_BLOCKS 1
-#endif
-constexpr int WARPS = FD_QP_WARPS;
+constexpr int WARPS = 4;                 // instances (warps) per block
 constexpr int THREADS = 32 * WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -286,7 +275,7 @@ __device__ __forceinline__ void kkt_step(const WarpSmem& S, int lane,
   dz = -(r_c + z * a2) * rs;
 }
 
-__global__ void __launch_bounds__(THREADS, FD_QP_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, 1)
 fd_qp_ipm_kernel(const float* __restrict__ Gp, const float* __restrict__ gp,
                  const float* __restrict__ Dp, const float* __restrict__ dp,
                  float* __restrict__ x_out, float* __restrict__ s_out,
@@ -547,9 +536,8 @@ extern "C" int fd_qp_ipm(const float* G, const float* g, const float* D,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch geometry, for reports: threads per block and lanes per instance.
+// Launch geometry, for reports: threads per block (one warp per instance).
 extern "C" int fd_qp_ipm_threads_per_block() { return THREADS; }
-extern "C" int fd_qp_ipm_lanes_per_instance() { return 32; }
 
 extern "C" const char* fd_qp_ipm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -58,9 +58,8 @@ class KernelBuild:
     path: Path  # the shared library
     seconds: float  # nvcc wall time of this process's build, 0.0 if reused
     log: str  # nvcc / ptxas output (-Xptxas -v: registers, spills)
-    threads_per_block: int  # launch geometry, read from the library
-    lanes_per_instance: int
-    lib: ctypes.CDLL
+    threads_per_block: int  # launch geometry, read from the library; one
+    # warp (32 lanes) solves one instance
 
 
 def ptxas_report(log: str) -> dict:
@@ -81,6 +80,7 @@ def ptxas_report(log: str) -> dict:
 
 
 _build: KernelBuild | None = None
+_lib = None
 
 
 def _nvcc() -> str:
@@ -93,13 +93,14 @@ def _nvcc() -> str:
     return path
 
 
-def compile_kernel(extra_flags: tuple[str, ...] = ()) -> KernelBuild:
-    """Compile ``csrc/fd_qp_ipm.cu`` with ``NVCC_FLAGS`` plus
-    ``extra_flags`` into ``build/`` (once per source and flags hash) and
-    load it. Raises if nvcc fails."""
-    flags = (*NVCC_FLAGS, *extra_flags)
+def build_kernel() -> KernelBuild:
+    """Compile ``csrc/fd_qp_ipm.cu`` into ``build/`` (once per source hash)
+    and load it (once per process). Raises if nvcc fails."""
+    global _build, _lib
+    if _build is not None:
+        return _build
     src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"fd_qp_ipm-{digest[:16]}.so"
     log_path = so.with_suffix(".log")
     seconds = 0.0
@@ -108,7 +109,7 @@ def compile_kernel(extra_flags: tuple[str, ...] = ()) -> KernelBuild:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
@@ -125,21 +126,12 @@ def compile_kernel(extra_flags: tuple[str, ...] = ()) -> KernelBuild:
     lib.fd_qp_ipm.restype = ctypes.c_int
     lib.fd_qp_ipm_error_string.argtypes = [ctypes.c_int]
     lib.fd_qp_ipm_error_string.restype = ctypes.c_char_p
-    return KernelBuild(
+    _lib = lib
+    _build = KernelBuild(
         path=so, seconds=seconds,
         log=log_path.read_text() if log_path.exists() else "",
         threads_per_block=lib.fd_qp_ipm_threads_per_block(),
-        lanes_per_instance=lib.fd_qp_ipm_lanes_per_instance(),
-        lib=lib,
     )
-
-
-def build_kernel() -> KernelBuild:
-    """The kernel as :func:`launch_fd_qp` runs it: compiled with
-    ``NVCC_FLAGS`` at first use and loaded once per process."""
-    global _build
-    if _build is None:
-        _build = compile_kernel()
     return _build
 
 
@@ -192,22 +184,14 @@ def launch_fd_qp(G, g, D, d, iters: int = 15):
                 f"{name} must be a contiguous float32 CUDA tensor of shape "
                 f"{shape} on G's device, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
-    out = run_build(build_kernel(), G, g, D, d, iters)
-    launches += 1
-    return out
-
-
-def run_build(build: KernelBuild, G, g, D, d, iters: int = 15):
-    """Launch ``build``'s kernel on inputs :func:`launch_fd_qp` has checked
-    (not counted in ``launches``; :func:`compile_kernel` builds other
-    variants for timing). Raises if the launch fails."""
-    B, dev = G.shape[0], G.device
+    build_kernel()
+    dev = G.device
     x = torch.empty((B, N), dtype=torch.float32, device=dev)
     s = torch.empty((B, MI), dtype=torch.float32, device=dev)
     z = torch.empty((B, MI), dtype=torch.float32, device=dev)
     kkt = torch.empty((B,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = build.lib.fd_qp_ipm(
+    rc = _lib.fd_qp_ipm(
         G.data_ptr(), g.data_ptr(), D.data_ptr(), d.data_ptr(),
         x.data_ptr(), s.data_ptr(), z.data_ptr(), kkt.data_ptr(),
         B, iters, stream,
@@ -215,8 +199,9 @@ def run_build(build: KernelBuild, G, g, D, d, iters: int = 15):
     if rc != 0:
         raise RuntimeError(
             "fd_qp_ipm launch failed: "
-            + build.lib.fd_qp_ipm_error_string(rc).decode()
+            + _lib.fd_qp_ipm_error_string(rc).decode()
         )
+    launches += 1
     return x, s, z, kkt
 
 
