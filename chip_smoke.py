@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernel, holds it
 against its plain PyTorch version, and drives every ported path through
-it: the massless and articulated closed loops, the QP headline and the
-load-factor double solve.
+it: the massless and articulated closed loops, the QP headline, the
+load-factor double solve and the config-5 scenario sweep; then the
+EKF-estimated closed loop, whose generic QP does not use the kernel.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -22,7 +23,8 @@ Phases, each of which raises (exit code 1) when a gate fails:
    the kernel through ``solve_fd_qp`` at B = 4096 and at B = 1 (the
    400 Hz controller's batch) with CUDA events, and the plain version.
 4. The massless main path: ``rollout(plant="massless")`` over B = 4096
-   trot scenarios for ``--ticks`` planner ticks (default 100). Gates:
+   trot scenarios for ``--ticks`` planner ticks (default 25, cut from 100
+   to make room for phases 9 and 10 in the time limit). Gates:
    exactly 4 kernel launches per tick, finite telemetry, upright fraction
    >= 0.99, QP KKT p99 <= 1e-2 and p99.9 <= 1e-3; the rollout's worst-KKT
    QP, re-solved alone, gives the kernel's in-rollout answer again; a
@@ -52,10 +54,29 @@ Phases, each of which raises (exit code 1) when a gate fails:
 8. Latency at B = 1 (bench.py's ``_latency_measure``): 25-tick chunks
    through the kernel with plant "none" and "articulated"; per-control-
    tick p50 / p99 ms over the chunks, recorded, not gated.
+9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
+   B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
+   per-scenario velocity commands, articulated plant, ``--sweep-ticks``
+   planner ticks (default 100) in 10-tick chunks after a one-tick
+   warm-up. Gates: exactly 4 kernel launches per tick (the warm-up's
+   included), finite telemetry, upright fraction (base over the local
+   ground > 0.25 m) >= 0.9 (bench.py's health check), QP KKT p99 <= 1e-2,
+   the sweep's worst-KKT QP re-solved alone gives its in-loop answer bit
+   for bit, and a 5-tick rerun through the plain QP agrees with a 5-tick
+   kernel run on base positions within 1e-3 m. Prints the scenario-
+   seconds per wall-second, the KKT tail and the share of scenarios whose
+   foothold search picked a cell other than the nominal foothold's own.
+10. The EKF-estimated closed loop (``rollout_estimated``) at B = 1024 for
+   ``--est-ticks`` ticks (default 100), trot at 0.2 m/s, realistic
+   sensors from a seeded generator on the card. Gates (the bounds of
+   tests/test_estimated_loop.py): finite telemetry, base height in
+   (0.3, 0.5) m throughout, median velocity error over ticks 50-100
+   < 0.12 m/s, every scenario's final position error < 0.25 m, and no
+   kernel launch (its QP is the generic IPM, as in the JAX package).
 
 ``--dump PATH`` writes the QPs that the gates single out (the phase-3
-Dx >= d violators, both rollouts' worst-KKT QPs, the headline's
-worst-KKT instances), with the kernel's answers, to an .npz
+Dx >= d violators, the rollouts' and the sweep's worst-KKT QPs, the
+headline's worst-KKT instances), with the kernel's answers, to an .npz
 (``tests/test_torch_fd_qp.py`` holds the committed one against the JAX
 solvers).
 
@@ -79,6 +100,7 @@ import torch
 
 SEED = 0
 BATCH = 4096  # scenarios and QP instances: the batch of bench.py's headline
+EST_BATCH = 1024  # scenarios of the estimated loop
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
@@ -704,15 +726,154 @@ def check_latency(chunks: int, device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9: the config-5 sweep
+# --------------------------------------------------------------------------
+
+
+class FootholdTap:
+    """Context manager that wraps ``heightfield.optimize_footholds`` for
+    one run and marks, on the card, the scenarios in which the search
+    picked a cell other than the nominal foothold's own (any leg, any
+    tick)."""
+
+    def __init__(self, hfm):
+        self.hfm, self.search = hfm, hfm.optimize_footholds
+        self.moved: torch.Tensor | None = None
+
+    def __enter__(self):
+        self.hfm.optimize_footholds = self
+        return self
+
+    def __exit__(self, *exc):
+        self.hfm.optimize_footholds = self.search
+
+    def __call__(self, hf, nominal, hips_world=None, **kw):
+        out = self.search(hf, nominal, hips_world, **kw)
+        a, b = hf.cell_index(nominal[..., :2]), hf.cell_index(out[0][..., :2])
+        moved = ((a[0] != b[0]) | (a[1] != b[1])).flatten(1).any(-1)
+        self.moved = moved if self.moved is None else self.moved | moved
+        return out
+
+
+def check_sweep(batch: int, ticks: int, device, dump: dict | None) -> dict:
+    from quadruped_locomotion_tpu_torch import sweep
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.terrain import heightfield as hfm
+
+    torch.cuda.reset_peak_memory_stats()
+    with WorstQp(fk) as tap, FootholdTap(hfm) as feet:
+        fk.launches = 0
+        res = sweep.measure(batch, ticks, chunk=10, device=device)
+        launches = fk.launches
+    want = (ticks + 1) * cl.CONTROL_SUBSTEPS  # the warm-up tick included
+    res.update(launches=launches,
+               moved_share=feet.moved.float().mean().item(),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"sweep B={batch} ticks={ticks}: " + json.dumps(res))
+    if launches != want:
+        raise AssertionError(f"sweep launched the kernel {launches} times, "
+                             f"want {want}")
+    if not res["finite"]:
+        raise AssertionError("sweep telemetry is not finite")
+    if res["upright_frac"] < 0.9:
+        raise AssertionError(f"sweep upright fraction {res['upright_frac']}")
+    if not res["p99_kkt"] <= 1e-2:
+        raise AssertionError(f"sweep QP KKT p99 {res['p99_kkt']} > 1e-2")
+    worst = check_worst_qp(tap.worst, cl.CONTROL_SUBSTEPS, dump,
+                           "sweep_worst")
+    if worst["kkt_rollout"] < res["max_kkt"]:
+        raise AssertionError(f"worst QP tap missed the max KKT: {worst}")
+
+    sc = sweep.build_scenarios(batch, 0, device)  # measure's scenarios
+    short = min(5, ticks)
+    _, tel_k = sweep.run(sc, short)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tel_p = sweep.run(sc, short, qp_backend="plain")
+    torch.cuda.synchronize()
+    dpos = (tel_p["base_position"] - tel_k["base_position"]).abs().max().item()
+    log(f"sweep B={batch} ticks={short} plain QP: "
+        f"{time.perf_counter() - t0:.2f} s, max |base position - kernel run| "
+        f"= {dpos:.3e} m")
+    if not dpos <= 1e-3:
+        raise AssertionError(f"plain and kernel sweeps differ by {dpos} m")
+    res.update(max_dpos_plain=dpos, worst_qp=worst)
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 10: the EKF-estimated closed loop
+# --------------------------------------------------------------------------
+
+
+def check_estimated(batch: int, ticks: int, device) -> dict:
+    from quadruped_locomotion_tpu_torch.control import state_estimator as se
+    from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.rollout import estimated_loop as el
+    from quadruped_locomotion_tpu_torch.types import RobotModel
+
+    model = RobotModel.simpledog(device)
+    gp = GaitParams.trot_defaults(device)
+    els = el.init_estimated(model, gp, batch, seed=SEED, device=device)
+    cmd = cl.Command(
+        linear_velocity=torch.tensor([0.2, 0.0, 0.0],
+                                     device=device).expand(batch, 3),
+        yaw_rate=torch.zeros(batch, device=device))
+    fk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, tel = el.rollout_estimated(
+        model, ControllerParams.defaults(device), gp,
+        se.EstimatorParams.defaults(device), el.SensorParams.realistic(device),
+        els, cmd, ticks, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    z = tel["base_position"][..., 2]
+    vel_err, pos_err = tel["vel_err"], tel["pos_err"]
+    late = vel_err[min(50, ticks - 1):]
+    res = dict(batch=batch, ticks=ticks, wall_s=wall,
+               s_per_tick=wall / ticks,
+               scenario_sim_s_per_wall_s=batch * ticks * cl.PLANNER_DT / wall,
+               finite=all(bool(torch.isfinite(v).all()) for v in tel.values()
+                          if v.is_floating_point()),
+               height_min=z.min().item(), height_max=z.max().item(),
+               vel_err_median_late=late.median().item(),
+               pos_err_final_max=pos_err[-1].max().item(),
+               pos_err_final_median=pos_err[-1].median().item(),
+               kkt_p99=float(np.percentile(tel["qp_kkt"].cpu().numpy(), 99)),
+               kernel_launches=fk.launches)
+    log(f"estimated loop B={batch} ticks={ticks}: " + json.dumps(res))
+    if not res["finite"]:
+        raise AssertionError("estimated-loop telemetry is not finite")
+    if not (0.3 < res["height_min"] and res["height_max"] < 0.5):
+        raise AssertionError(f"estimated loop left (0.3, 0.5) m: {res}")
+    if not res["vel_err_median_late"] < 0.12:
+        raise AssertionError(f"estimated velocity error: {res}")
+    if not res["pos_err_final_max"] < 0.25:
+        raise AssertionError(f"estimated position error: {res}")
+    if fk.launches:
+        raise AssertionError("the estimated loop reached the kernel")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ticks", type=int, default=100,
+    ap.add_argument("--ticks", type=int, default=25,
                     help="planner ticks of the massless rollout (a quick "
                          "check after a kernel change uses fewer)")
     ap.add_argument("--art-ticks", type=int, default=50,
                     help="planner ticks of the articulated rollout")
     ap.add_argument("--latency-chunks", type=int, default=3,
                     help="timed 25-tick chunks per plant at B = 1")
+    ap.add_argument("--sweep-ticks", type=int, default=100,
+                    help="planner ticks of the config-5 sweep")
+    ap.add_argument("--est-ticks", type=int, default=100,
+                    help="planner ticks of the estimated loop (>= 51)")
     ap.add_argument("--dump", type=Path, default=None,
                     help="write the QP instances the gates look at (the "
                          "kernel's and plain version's Dx >= d violators, "
@@ -761,12 +922,16 @@ def main() -> int:
     a = timed("articulated", check_articulated, BATCH, args.art_ticks, device,
               dump)
     lat = timed("latency", check_latency, args.latency_chunks, device)
+    sw = timed("sweep", check_sweep, BATCH, args.sweep_ticks, device, dump)
+    est = timed("estimated", check_estimated, EST_BATCH, args.est_ticks,
+                device)
     if dump is not None:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
         np.savez(args.dump, **dump)
 
     launches = (m["launches"] + m["launches_none"] + h["launches"]
-                + lf["launches"] + a["launches"] + lat["launches"])
+                + lf["launches"] + a["launches"] + lat["launches"]
+                + sw["launches"] + est["kernel_launches"])
     log("phase wall seconds: " + json.dumps(phase_s)
         + f"; whole script {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{

@@ -2,7 +2,9 @@
 ``quadruped_locomotion_tpu/control/locomotion.py``): stance legs get VMC +
 force-distribution torques, swing legs computed-torque control, all
 clamped to ±300 N·m. A batched rollout runs :func:`locomotion_prepare`
-for every scenario, ONE batched QP solve, then :func:`locomotion_finish`.
+for every scenario, ONE batched QP solve, then :func:`locomotion_finish`;
+:func:`locomotion_update` composes the three with the generic QP, as the
+reference's single-scenario tick does.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..model.kinematics import forward_kinematics, mv
+from ..ops import qp
 from ..ops.fd_qp_kernel import form_quadratic
 from ..ops.qp import QpSolution
 from ..types import (
@@ -114,3 +117,22 @@ def locomotion_finish(
         virtual_torque=ctx.virtual_torque,
         distribution=dist,
     )
+
+
+def locomotion_update(
+    model: RobotModel,
+    params: ControllerParams,
+    state: RobotState,
+    target: BaseTarget,
+    swing_pos_world: torch.Tensor,  # (...,4,3) swing-foot references
+    swing_vel_world: torch.Tensor,
+    swing_acc_world: torch.Tensor,
+    qp_iters: int = 15,
+):
+    """One control tick: prepare → the generic IPM ``ops.qp.solve_qp``
+    over the leading dims → finish. Returns (torques (...,4,3),
+    BalanceDiagnostics)."""
+    ctx = locomotion_prepare(model, params, state, target, swing_pos_world,
+                             swing_vel_world, swing_acc_world)
+    sol = qp.solve_qp(ctx.G, ctx.g, ctx.D, ctx.d, iters=qp_iters)
+    return locomotion_finish(model, params, state, ctx, sol)

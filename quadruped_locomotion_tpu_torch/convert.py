@@ -5,7 +5,10 @@ field name, mirroring the JAX package's dataclasses and NamedTuples
 (``RobotModel``, ``ControllerParams`` = (vmc, cfd, swing), ``GaitParams``,
 ``LocomotionState`` = (sim, gait, fsm) with the swing-spline tables,
 ``SimState`` of either plant (the articulated one keeps its pinned feet's
-anchors in ``feet_world``), ``QpSolution``).
+anchors in ``feet_world``), ``QpSolution``, ``Heightfield`` and
+``EstimatorState``). Batched objects keep the JAX package's vmapped
+layout, a leading scenario axis on every leaf: one map per scenario in a
+``Heightfield``, (B,) and (B,2) leaves in per-scenario ``GaitParams``.
 :func:`from_numpy` builds any of the port's objects on a device, e.g.
 ``from_numpy(LocomotionState, tree, "cuda")``; :func:`to_numpy` is the
 reverse. Producing the dict from JAX objects is the caller's side

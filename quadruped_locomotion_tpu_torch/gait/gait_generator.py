@@ -1,7 +1,9 @@
-"""Trot/pace gait engine on flat ground: Raibert footholds, swing splines,
-smoothed base reference (≙ ``quadruped_locomotion_tpu/gait/
-gait_generator.py``). Every array carries leading scenario dims; legs
-are the axis after them. Heightfield terrain is not ported yet."""
+"""Trot/pace gait engine: Raibert footholds, swing splines, smoothed base
+reference (≙ ``quadruped_locomotion_tpu/gait/gait_generator.py``). Every
+array carries leading scenario dims; legs are the axis after them.
+``GaitParams`` may be shared or per scenario (see ``phase.py``). With a
+per-scenario ``Heightfield``, footholds snap to the nearest traversable
+cell and the surface normals come from the map."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..terrain import heightfield as hf_mod
 from ..types import GRAVITY, BaseTarget, RobotModel, RobotState, TensorStruct
 from ..utils.rotations import quat_from_rpy, quat_inv_rotate, quat_rotate, rpy_from_quat
 from . import phase as phase_mod
@@ -74,11 +77,12 @@ def raibert_footholds(
     params: GaitParams,
     v_desired_world: torch.Tensor,  # (...,3)
     footprint_center_z: torch.Tensor,  # (...) mean support-foot height
-    capture_gain=1.0,  # scalar or (2,)
+    ground_height=0.0,  # scalar or (...,4) terrain height under the hips
+    capture_gain=1.0,  # scalar, (2,) or (...,2)
     yaw_rate_desired=0.0,  # (...) or scalar
 ) -> torch.Tensor:
-    """Target footholds in world frame on flat ground z = 0: (...,4,3).
-    Kinematic hip projected to the floor plus the Raibert displacement
+    """Target footholds in world frame: (...,4,3). Kinematic hip projected
+    to the ground (z = ``ground_height``) plus the Raibert displacement
     0.5·t_st·v_des + √(z_hip/g)·(v − v_des), rotated by the base yaw."""
     base = state.base
     dtype, dev = v_desired_world.dtype, v_desired_world.device
@@ -90,16 +94,20 @@ def raibert_footholds(
     v_des_fp = quat_inv_rotate(q_yaw, v_desired_world) * xy
 
     z_hip = torch.clamp(base.position[..., 2] - footprint_center_z, min=1e-3)
-    cap = torch.as_tensor(capture_gain, dtype=dtype, device=dev).expand(2)
-    cap3 = torch.cat([cap, cap.new_zeros(1)])
-    displace_fp = 0.5 * params.t_stance * v_des_fp + cap3 * torch.sqrt(
+    cap = torch.as_tensor(capture_gain, dtype=dtype, device=dev)
+    if cap.dim() == 0:
+        cap = cap.expand(2)
+    cap3 = torch.cat([cap, torch.zeros_like(cap[..., :1])], dim=-1)
+    t_st = params.t_stance[..., None]
+    displace_fp = 0.5 * t_st * v_des_fp + cap3 * torch.sqrt(
         z_hip / GRAVITY)[..., None] * (v_cur_base - v_des_fp)
     displace_fp = _set_z(displace_fp, 0.0)
 
-    # kinematic hips projected to the ground plane (z = 0)
+    # kinematic hips projected to the ground under them
+    gz = torch.as_tensor(ground_height, dtype=dtype, device=dev)
     hips_world = base.position[..., None, :] + quat_rotate(
         base.quaternion[..., None, :], model.hip_pos.to(dtype))
-    hips_world = hips_world * xy
+    hips_world = hips_world * xy + gz[..., None] * (1 - xy)
 
     displace_world = _set_z(quat_rotate(q_yaw, displace_fp), 0.0)
     # turning: place each foothold half a stance ahead along the hip's arc
@@ -109,7 +117,7 @@ def raibert_footholds(
                       dim=-1)
     tangential = wz[..., None, None] * arc
     displace_yaw = quat_rotate(q_yaw[..., None, :],
-                               0.5 * params.t_stance * tangential)
+                               0.5 * t_st[..., None] * tangential)
     return hips_world + displace_world[..., None, :] + displace_yaw * xy
 
 
@@ -176,7 +184,7 @@ def base_target_smoothed(
     xy = v_desired_world.new_tensor([1.0, 1.0, 0.0])
     # lead the CoM target one stance period ahead along the command
     com_des = com_target_raw(gait, params, feet_anchor) + (
-        params.t_stance * v_desired_world * xy)
+        params.t_stance[..., None] * v_desired_world * xy)
 
     dist = torch.linalg.norm(com_des - gait.base_ref_pos, dim=-1)
     duration = torch.clamp(dist / params.base_avg_velocity, 0.2, 2.0)
@@ -219,26 +227,36 @@ def advance(
 ):
     """One gait tick. Returns (new GaitState, support (...,4), swing foot
     (pos, vel, acc) in world (each (...,4,3)), BaseTarget, surface
-    normals (...,4,3))."""
-    if terrain is not None:
-        raise NotImplementedError(
-            "heightfield terrain is not ported yet (next slice: terrain "
-            "+ mixed gaits)")
+    normals (...,4,3)). With a ``terrain`` Heightfield (one map per
+    scenario), footholds snap to the nearest traversable cell within
+    reach of the hip, and every leg's normal is its target cell's."""
     ph = phase_mod.advance(gait.phase, params, dt)
 
     support_f = ph.support.to(feet_world.dtype)
     footprint_z = (feet_world[..., 2] * support_f).sum(-1) / torch.clamp(
         support_f.sum(-1), min=1.0)
-    normals = _set_z(torch.zeros_like(feet_world), 1.0)
 
     # Footholds are regenerated every tick for legs in swing and frozen
     # over the final 20% of the swing.
+    if terrain is None:
+        ground = 0.0
+        normals = _set_z(torch.zeros_like(feet_world), 1.0)
+    else:
+        hips_3d = state.base.position[..., None, :] + quat_rotate(
+            state.base.quaternion[..., None, :],
+            model.hip_pos.to(feet_world.dtype))
+        ground = terrain.height_at(hips_3d[..., :2])
     targets = raibert_footholds(
         model, state, params, v_desired_world, footprint_z,
-        capture_gain=params.capture_gain, yaw_rate_desired=yaw_rate_desired,
+        ground_height=ground, capture_gain=params.capture_gain,
+        yaw_rate_desired=yaw_rate_desired,
     )
+    if terrain is not None:
+        targets, normals, _ = hf_mod.optimize_footholds(terrain, targets,
+                                                        hips_3d)
+    t_sw = params.t_swing[..., None]
     update = ph.ready_to_swing | (ph.is_swing
-                                  & (ph.swing_phase < 0.8 * params.t_swing))
+                                  & (ph.swing_phase < 0.8 * t_sw))
     new_targets = torch.where(update[..., None], targets, gait.swing_targets)
     new_starts = torch.where(ph.ready_to_swing[..., None], feet_world,
                              gait.swing_starts)
@@ -247,10 +265,10 @@ def advance(
     # knot times rescaled so the spline spans exactly t_swing.
     sp = swing_trajectory(new_starts, new_targets, profile=PROFILE_TRIANGLE,
                           profile_height=0.15)
-    scale = params.t_swing / torch.clamp(sp.duration, min=1e-6)
+    scale = t_sw / torch.clamp(sp.duration, min=1e-6)
     fresh = sp.replace(times=sp.times * scale[..., None],
                        tangents=sp.tangents / scale[..., None, None],
-                       duration=params.t_swing.expand_as(sp.duration))
+                       duration=t_sw.expand_as(sp.duration))
     old = gait.swing_splines
     splines = HermiteSpline(
         times=torch.where(update[..., None], fresh.times, old.times),

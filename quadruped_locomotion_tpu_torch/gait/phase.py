@@ -1,9 +1,17 @@
 """Per-leg swing/stance phase machine for trot and pace (≙
 ``quadruped_locomotion_tpu/gait/phase.py``). Everything is
-``torch.where``-masked over (..., 4) leg arrays."""
+``torch.where``-masked over (..., 4) leg arrays.
+
+``GaitParams`` is either one set shared by every scenario (scalar and
+(2,) leaves) or one set per scenario ((B,) and (B,2) leaves, e.g. a
+trot/pace mix); the functions here index a leaf's own axes from the end
+(``t_swing[..., None]`` against the leg axis,
+``sigma_st[..., None, :]``), so both forms take the same code path and a
+(B,) leaf never broadcasts along the legs."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -17,14 +25,15 @@ PACE = 1
 
 @dataclass
 class GaitParams(TensorStruct):
-    t_swing: torch.Tensor  # ()
-    t_stance: torch.Tensor  # ()
-    height: torch.Tensor  # () nominal base height over the footprint
-    sigma_st: torch.Tensor  # (2,) erf widths, stance
-    sigma_sw: torch.Tensor  # (2,) erf widths, swing
-    base_avg_velocity: torch.Tensor  # () base reference tracking speed
-    capture_gain: torch.Tensor  # (2,) Raibert capture gain per axis
-    vel_cmd_blend: torch.Tensor  # () 0 = spline velocity, 1 = command
+    # shapes shared / per scenario:
+    t_swing: torch.Tensor  # () / (B,)
+    t_stance: torch.Tensor  # () / (B,)
+    height: torch.Tensor  # () / (B,) nominal base height over the footprint
+    sigma_st: torch.Tensor  # (2,) / (B,2) erf widths, stance
+    sigma_sw: torch.Tensor  # (2,) / (B,2) erf widths, swing
+    base_avg_velocity: torch.Tensor  # () / (B,) base reference tracking speed
+    capture_gain: torch.Tensor  # (2,) / (B,2) Raibert capture gain per axis
+    vel_cmd_blend: torch.Tensor  # () / (B,) 0 = spline velocity, 1 = command
 
     @classmethod
     def trot_defaults(cls, device=None, dtype=torch.float32) -> "GaitParams":
@@ -34,6 +43,22 @@ class GaitParams(TensorStruct):
     @classmethod
     def pace_defaults(cls, device=None, dtype=torch.float32) -> "GaitParams":
         return cls._make(device, dtype, 0.5, 1.5, [1.0, 2.2])
+
+    def per_scenario(self, batch: int) -> "GaitParams":
+        """Leaves with a leading scenario axis (B,): shared parameters are
+        expanded as views; per-scenario ones must already have B rows."""
+        def one(t, tail):
+            if t.dim() == tail:
+                return t.expand((batch,) + t.shape)
+            if t.shape[0] != batch:
+                raise ValueError(f"GaitParams leaf of shape {tuple(t.shape)} "
+                                 f"for {batch} scenarios")
+            return t
+        return GaitParams(**{
+            f.name: one(getattr(self, f.name),
+                        1 if f.name in ("sigma_st", "sigma_sw",
+                                        "capture_gain") else 0)
+            for f in dataclasses.fields(self)})
 
     @classmethod
     def _make(cls, device, dtype, t_swing, t_stance, capture_gain):
@@ -59,13 +84,14 @@ class PhaseState(TensorStruct):
         """LF + RH lift off on the first tick: all legs start in stance
         with the lead pair's stance timer already expired."""
         t = params.t_stance
-        return cls._make(batch, torch.stack([t, 0 * t, t, 0 * t]))
+        return cls._make(batch, torch.stack([t, 0 * t, t, 0 * t], dim=-1))
 
     @classmethod
     def init_pace(cls, params: GaitParams, batch=()) -> "PhaseState":
         """LF first; RH at 2/3·t_st, LH at 1/3·t_st."""
         t = params.t_stance
-        return cls._make(batch, torch.stack([t, 0 * t, 2 * t / 3, t / 3]))
+        return cls._make(batch, torch.stack([t, 0 * t, 2 * t / 3, t / 3],
+                                            dim=-1))
 
     @classmethod
     def _make(cls, batch, stance):
@@ -87,11 +113,12 @@ def advance(state: PhaseState, params: GaitParams, dt: float) -> PhaseState:
     # Half-tick tolerance so swing_done and the partner legs' stance_done
     # fire on the SAME tick despite float accumulation error.
     eps = 0.5 * dt
-    swing_done = state.is_swing & (sw > params.t_swing - eps)
-    stance_done = ~state.is_swing & (st > params.t_stance - eps)
+    t_sw, t_st = params.t_swing[..., None], params.t_stance[..., None]
+    swing_done = state.is_swing & (sw > t_sw - eps)
+    stance_done = ~state.is_swing & (st > t_st - eps)
     # carry the overshoot into the new phase timer
-    sw_res = torch.clamp(st - params.t_stance, min=0.0)
-    st_res = torch.clamp(sw - params.t_swing, min=0.0)
+    sw_res = torch.clamp(st - t_st, min=0.0)
+    st_res = torch.clamp(sw - t_sw, min=0.0)
     return PhaseState(
         swing_phase=torch.where(stance_done, sw_res,
                                 torch.where(swing_done, zero, sw)),
@@ -105,9 +132,9 @@ def advance(state: PhaseState, params: GaitParams, dt: float) -> PhaseState:
 
 def total_phase(state: PhaseState, params: GaitParams) -> torch.Tensor:
     """Normalized gait-cycle phase per leg ∈ [0,1], swing first."""
-    cycle = params.t_stance + params.t_swing
+    cycle = (params.t_stance + params.t_swing)[..., None]
     return torch.where(state.is_swing, state.swing_phase / cycle,
-                       (state.stance_phase + params.t_swing) / cycle)
+                       (state.stance_phase + params.t_swing[..., None]) / cycle)
 
 
 def com_weights(state: PhaseState, params: GaitParams) -> torch.Tensor:
@@ -115,8 +142,9 @@ def com_weights(state: PhaseState, params: GaitParams) -> torch.Tensor:
     p = total_phase(state, params)
     sq2 = math.sqrt(2.0)
     erf = torch.special.erf
-    k_st = 0.5 * (erf(p / (params.sigma_st[0] * sq2))
-                  + erf((1 - p) / (params.sigma_st[1] * sq2)))
-    k_sw = 0.5 * (2.0 + erf(-p / (params.sigma_sw[0] * sq2))
-                  + erf((p - 1) / (params.sigma_sw[1] * sq2)))
+    st, sw = params.sigma_st[..., None, :], params.sigma_sw[..., None, :]
+    k_st = 0.5 * (erf(p / (st[..., 0] * sq2))
+                  + erf((1 - p) / (st[..., 1] * sq2)))
+    k_sw = 0.5 * (2.0 + erf(-p / (sw[..., 0] * sq2))
+                  + erf((p - 1) / (sw[..., 1] * sq2)))
     return torch.where(state.is_swing, k_sw, k_st)

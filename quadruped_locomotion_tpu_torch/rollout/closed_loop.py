@@ -6,7 +6,11 @@ Each 100 Hz planner tick runs the gait engine once, then
 runs the contact FSM and the controller's prepare stage for all
 scenarios, ONE batched force-distribution QP solve (the CUDA kernel on
 the GPU), the finish stage, and one plant step. Every input carries a
-leading scenario axis B.
+leading scenario axis B. The scenario axis may also vary the gait
+(per-scenario ``GaitParams``, e.g. a trot/pace mix from
+:func:`init_locomotion_mixed`) and the terrain (a ``Heightfield`` with
+one map per scenario): the config-5 scenario surface, terrain × gait ×
+velocity.
 """
 
 from __future__ import annotations
@@ -24,9 +28,12 @@ from ..control.locomotion import (
 )
 from ..control.swing import joint_pd_gravity_torques
 from ..gait import gait_generator as gg
+from ..gait import phase as phase_mod
 from ..gait.phase import GaitParams
 from ..model.kinematics import foot_velocities, forward_kinematics
-from ..types import RobotModel, TensorStruct, full_f32_matmuls, resolve_device
+from ..types import (
+    RobotModel, TensorStruct, full_f32_matmuls, resolve_device, where_tree,
+)
 from ..utils.rotations import cross, quat_rotate
 from . import articulated as artlib
 from . import simulator as simlib
@@ -99,6 +106,30 @@ def init_locomotion(
                                               sim.feet_world.dtype))
 
 
+def init_locomotion_mixed(
+    model: RobotModel,
+    gait_params: GaitParams,  # per-scenario leaves (B,) / (B,2)
+    gait_type: torch.Tensor,  # (B,) phase.TROT / phase.PACE
+    height: float | None = None,
+    device=None,
+) -> LocomotionState:
+    """Standing starts of a mixed-gait batch on ``device`` (default CUDA;
+    raises where it is absent): each scenario stands at its own
+    ``GaitParams.height`` and takes its gait's init table
+    (where-selected, so the batch stays one fixed-shape state)."""
+    dev = resolve_device(device)
+    gait_type = torch.as_tensor(gait_type, device=dev)
+    B = gait_type.shape[0]
+    model, gait_params = model.to(dev), gait_params.to(dev).per_scenario(B)
+    h = gait_params.height if height is None else height
+    sim = simlib.default_stance_state(model, height=h, batch=(B,))
+    trot = gg.init_gait_state(phase_mod.TROT, gait_params, sim.feet_world)
+    pace = gg.init_gait_state(phase_mod.PACE, gait_params, sim.feet_world)
+    gait = where_tree(gait_type == phase_mod.PACE, pace, trot)
+    return LocomotionState(sim=sim, gait=gait,
+                           fsm=init_fsm_state((B,), dev, sim.feet_world.dtype))
+
+
 def _plant(plant: str):
     if plant not in PLANTS:
         raise ValueError(f"unknown plant {plant!r}")
@@ -118,9 +149,10 @@ def planner_tick(
     qp_backend: str = "auto",
 ):
     """One 100 Hz planner tick + 4 control/physics substeps over the batch.
-    ``friction_mu`` (articulated plant only) bounds contact forces by the
-    Coulomb cone. Returns (new LocomotionState, per-scenario max QP KKT
-    over the substeps (B,))."""
+    ``terrain``: a ``Heightfield`` with one map per scenario (None is
+    flat ground at z = 0). ``friction_mu`` (articulated plant only)
+    bounds contact forces by the Coulomb cone. Returns (new
+    LocomotionState, per-scenario max QP KKT over the substeps (B,))."""
     plant_step = _plant(plant)
     plant_kwargs = ({"friction_mu": friction_mu}
                     if friction_mu is not None and plant == "articulated"
@@ -130,13 +162,17 @@ def planner_tick(
         command.linear_velocity, command.yaw_rate, PLANNER_DT, terrain=terrain,
     )
     # normalized phases for the FSM thresholds
-    sw_norm = gait2.phase.swing_phase / torch.clamp(gait_params.t_swing, min=1e-6)
-    st_norm = gait2.phase.stance_phase / torch.clamp(gait_params.t_stance, min=1e-6)
+    sw_norm = gait2.phase.swing_phase / torch.clamp(
+        gait_params.t_swing[..., None], min=1e-6)
+    st_norm = gait2.phase.stance_phase / torch.clamp(
+        gait_params.t_stance[..., None], min=1e-6)
 
     sim, fsm_state = ls.sim, ls.fsm
-    gz = torch.zeros_like(sim.feet_world[..., 2])  # flat ground
     kkt = None
     for _ in range(CONTROL_SUBSTEPS):
+        # ground height under each foot
+        gz = (torch.zeros_like(sim.feet_world[..., 2]) if terrain is None
+              else terrain.height_at(sim.feet_world[..., :2]))
         # reconcile the gait's support with measured contact, then reflexes
         contact = simlib.contact_sensor(sim, ground_height=gz)
         fsm_state, fsm = fsm_step(
@@ -178,13 +214,18 @@ def rollout(
     device=None,
 ):
     """Batched closed-loop rollout on ``device`` (default CUDA; raises
-    where it is absent). Returns (final state, telemetry): a dict of
-    (T, B, ...) tensors, one entry per planner tick."""
+    where it is absent). ``gait_params`` shared or per scenario,
+    ``terrain`` None (flat) or one ``Heightfield`` map per scenario.
+    Returns (final state, telemetry): a dict of (T, B, ...) tensors, one
+    entry per planner tick."""
     dev = resolve_device(device)
     full_f32_matmuls()
     _plant(plant)
     model, params, gait_params, ls, command = (
         o.to(dev) for o in (model, params, gait_params, ls0, command))
+    gait_params = gait_params.per_scenario(ls.sim.feet_world.shape[0])
+    if terrain is not None:
+        terrain = terrain.to(dev)
     tel = {k: [] for k in ("base_position", "base_quaternion",
                            "base_velocity", "feet_world", "support",
                            "leg_state", "qp_kkt")}

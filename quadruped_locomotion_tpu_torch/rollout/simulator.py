@@ -33,17 +33,19 @@ class SimState(TensorStruct):
     time: torch.Tensor  # (...)
 
 
-def default_stance_state(model: RobotModel, height: float = 0.4,
+def default_stance_state(model: RobotModel, height=0.4,
                          batch=(), dtype=torch.float32) -> SimState:
     """All-stance state with the feet below the kinematic hips, on the
-    model's device."""
+    model's device. ``height`` is a float or a tensor of shape ``batch``
+    (one standing height per scenario)."""
     dev = model.hip_pos.device
-    feet_base = model.hip_pos.to(dtype) - torch.tensor(
-        [0.0, 0.0, height], dtype=dtype, device=dev)
+    h = torch.as_tensor(height, dtype=dtype, device=dev)
+    zero = torch.zeros_like(h)
+    pos = torch.stack([zero, zero, h], dim=-1)
+    feet_base = model.hip_pos.to(dtype) - pos[..., None, :]
     q = inverse_kinematics(model, feet_base).expand(*batch, 4, 3).clone()
     base = BaseState.identity(batch, dev, dtype)
-    base = base.replace(position=torch.tensor(
-        [0.0, 0.0, height], dtype=dtype, device=dev).expand(*batch, 3).clone())
+    base = base.replace(position=pos.expand(*batch, 3).clone())
     robot = RobotState.neutral(batch, dev, dtype).replace(base=base, q=q)
     feet_world = base.position[..., None, :] + quat_rotate(
         base.quaternion[..., None, :], feet_base)

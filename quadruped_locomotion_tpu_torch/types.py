@@ -55,6 +55,17 @@ def _map_tensors(obj, fn):
     return obj
 
 
+def where_tree(mask: torch.Tensor, a, b):
+    """``a`` where ``mask`` (B,) is set, else ``b``, leaf by leaf over two
+    structs of the same layout whose leaves lead with the B axis."""
+    if isinstance(a, torch.Tensor):
+        m = mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim()))
+        return torch.where(m, a, b)
+    return dataclasses.replace(a, **{
+        f.name: where_tree(mask, getattr(a, f.name), getattr(b, f.name))
+        for f in dataclasses.fields(a)})
+
+
 class TensorStruct:
     """Mixin for dataclasses of tensors: functional ``replace`` and ``to``."""
 

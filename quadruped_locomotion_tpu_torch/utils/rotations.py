@@ -118,6 +118,11 @@ def quat_exp(phi: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
+def quat_boxplus(q: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """kindr-style boxPlus: exp(phi) ⊗ q (global perturbation)."""
+    return quat_mul(quat_exp(phi), q)
+
+
 def skew(v: torch.Tensor) -> torch.Tensor:
     """skew(v) @ u == v × u."""
     x, y, z = v.unbind(-1)

@@ -1,22 +1,33 @@
 """Write the JAX reference rollouts that the PyTorch port is held against.
 
-Runs ``quadruped_locomotion_tpu``'s batched closed loop
-(``rollout(batched=True, plant=..., qp_backend="xla", terrain=None)``)
-over B trot scenarios whose velocity commands are drawn from a seeded
-numpy generator, and saves its inputs (model, controller and gait
-parameters, the initial batched state, the commands) and its per-tick
-telemetry to one compressed ``.npz``. Keys are ``/``-joined field paths,
-e.g. ``ls0/sim/robot/base/position`` or ``tel/qp_kkt``.
+Runs one of ``quadruped_locomotion_tpu``'s closed loops on the CPU and
+saves its inputs and its per-tick telemetry to one compressed ``.npz``.
+Keys are ``/``-joined field paths, e.g. ``ls0/sim/robot/base/position``
+or ``tel/qp_kkt``. ``--path``:
+
+* ``flat`` (default): the batched closed loop (``rollout(batched=True,
+  plant=..., qp_backend="xla", terrain=None)``) over B trot scenarios
+  whose velocity commands come from a seeded numpy generator. Defaults:
+  the massless plant, B = 8, 25 ticks, written to
+  ``tests/data/torch_port_rollout_golden.npz``; with ``--plant
+  articulated``, B = 2, 10 ticks, written to
+  ``tests/data/torch_port_articulated_golden.npz``.
+* ``sweep``: bench.py's config-5 scenarios (per-scenario heightfields,
+  the trot/pace mix, per-scenario commands; ``bench.build_scenarios``'
+  draws) with the flat spawn box shrunk to just cover the stance feet,
+  through the batched closed loop with ``terrain_batched`` and
+  ``gait_params_batched``, articulated plant: B = 8, 20 ticks, written to
+  ``tests/data/torch_port_sweep_golden.npz``.
+* ``estimated``: ``rollout_estimated`` with ideal sensors (every noise
+  and bias zero), articulated plant, vmapped over B = 3 trot scenarios
+  with seeded commands, 10 ticks, written to
+  ``tests/data/torch_port_estimated_golden.npz``.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_golden.py \
-        [--plant massless|articulated] [--out PATH] [--batch B] \
-        [--ticks T] [--seed 0]
+        [--path flat|sweep|estimated] [--plant massless|articulated] \
+        [--out PATH] [--batch B] [--ticks T] [--seed 0]
 
-Defaults: the massless plant, B = 8, 25 ticks, written to
-``tests/data/torch_port_rollout_golden.npz``; with ``--plant
-articulated``, B = 2, 10 ticks, written to
-``tests/data/torch_port_articulated_golden.npz``. The first run compiles
-the batched rollout on XLA:CPU, which takes a few minutes (the
+Each run compiles its rollout on XLA:CPU: a few minutes (the
 articulated plant longer).
 """
 
@@ -25,17 +36,28 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 import numpy as np
 
-DATA = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests", "data")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(ROOT, "tests", "data")
 # plant -> (default output, batch, ticks)
 DEFAULTS = {
     "massless": (os.path.join(DATA, "torch_port_rollout_golden.npz"), 8, 25),
     "articulated": (os.path.join(DATA, "torch_port_articulated_golden.npz"),
                     2, 10),
 }
+# --path sweep / estimated -> (default output, batch, ticks)
+PATH_DEFAULTS = {
+    "sweep": (os.path.join(DATA, "torch_port_sweep_golden.npz"), 8, 20),
+    "estimated": (os.path.join(DATA, "torch_port_estimated_golden.npz"),
+                  3, 10),
+}
+# the sweep golden's flat spawn box (half-widths x, y): the stance feet
+# stand at (±0.4, ±0.175), so within 20 ticks the footholds and swing feet
+# reach the bumps; bench.py's box is (0.65, 0.45)
+SWEEP_GOLDEN_FLAT_ZONE = (0.45, 0.2)
 
 
 def jax_to_numpy(obj):
@@ -116,18 +138,100 @@ def make_golden(batch: int = 8, ticks: int = 25, seed: int = 0,
     return flatten(tree)
 
 
+def make_sweep_golden(batch: int = 8, ticks: int = 20, seed: int = 0) -> dict:
+    """bench.build_scenarios' scenarios with SWEEP_GOLDEN_FLAT_ZONE through
+    the JAX batched closed loop (articulated plant, XLA QP)."""
+    import jax
+    import jax.numpy as jnp
+
+    import bench
+    from make_torch_port_references import sweep_heights
+    from quadruped_locomotion_tpu.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu.terrain.heightfield import Heightfield
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    model = RobotModel.simpledog()
+    params = ControllerParams.defaults()
+    ls0, cmd, gp, _, _ = bench.build_scenarios(batch, seed)
+    height = sweep_heights(batch, seed, SWEEP_GOLDEN_FLAT_ZONE)
+    hf = jax.vmap(lambda h: Heightfield.from_height_array(
+        h, origin=(-2.4, -2.4), resolution=0.1))(jnp.asarray(height))
+    run = jax.jit(lambda ls: cl.rollout(
+        model, params, gp, ls, cmd, ticks, batched=True,
+        plant="articulated", qp_backend="xla", terrain=hf,
+        terrain_batched=True, gait_params_batched=True))
+    _, tel = run(ls0)
+    return flatten({
+        "model": jax_to_numpy(model), "params": jax_to_numpy(params),
+        "gait_params": jax_to_numpy(gp), "ls0": jax_to_numpy(ls0),
+        "cmd": jax_to_numpy(cmd), "terrain": jax_to_numpy(hf),
+        "tel": jax_to_numpy(tel),
+        "meta": {"batch": np.asarray(batch), "ticks": np.asarray(ticks),
+                 "seed": np.asarray(seed),
+                 "flat_zone": np.asarray(SWEEP_GOLDEN_FLAT_ZONE)},
+    })
+
+
+def make_estimated_golden(batch: int = 3, ticks: int = 10,
+                          seed: int = 0) -> dict:
+    """rollout_estimated with ideal sensors, vmapped over ``batch`` trot
+    scenarios with commands from :func:`trot_commands`."""
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.control import state_estimator as se
+    from quadruped_locomotion_tpu.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu.gait.phase import GaitParams
+    from quadruped_locomotion_tpu.rollout import estimated_loop as el
+    from quadruped_locomotion_tpu.rollout.closed_loop import Command
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    model = RobotModel.simpledog()
+    params = ControllerParams.defaults()
+    gp = GaitParams.trot_defaults()
+    ep = se.EstimatorParams.defaults()
+    sensors = el.SensorParams.ideal()
+    els0 = jax.vmap(lambda k: el.init_estimated(model, gp, k))(
+        jax.random.split(jax.random.PRNGKey(seed), batch))
+    lin, wz = trot_commands(batch, seed)
+    cmd = Command(linear_velocity=jnp.asarray(lin), yaw_rate=jnp.asarray(wz))
+    run = jax.jit(jax.vmap(lambda els, c: el.rollout_estimated(
+        model, params, gp, ep, sensors, els, c, ticks)))
+    _, tel = run(els0, cmd)
+    # per scenario (B, T, ...) -> per tick (T, B, ...), as the port's
+    tel = {k: np.swapaxes(np.asarray(v), 0, 1) for k, v in tel.items()}
+    return flatten({
+        "model": jax_to_numpy(model), "params": jax_to_numpy(params),
+        "gait_params": jax_to_numpy(gp), "est_params": jax_to_numpy(ep),
+        "loop0": jax_to_numpy(els0.loop), "est0": jax_to_numpy(els0.est),
+        "cmd": {"linear_velocity": lin, "yaw_rate": wz}, "tel": tel,
+        "meta": {"batch": np.asarray(batch), "ticks": np.asarray(ticks),
+                 "seed": np.asarray(seed)},
+    })
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--plant", choices=sorted(DEFAULTS), default="massless")
+    ap.add_argument("--path", choices=("flat", "sweep", "estimated"),
+                    default="flat")
+    ap.add_argument("--plant", choices=sorted(DEFAULTS), default="massless",
+                    help="plant of --path flat")
     ap.add_argument("--out", default=None)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--ticks", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    out, batch, ticks = DEFAULTS[args.plant]
+    sys.path.insert(0, ROOT)
+    if args.path == "flat":
+        out, batch, ticks = DEFAULTS[args.plant]
+        make = lambda b, t, s: make_golden(b, t, s, plant=args.plant)  # noqa: E731
+    else:
+        out, batch, ticks = PATH_DEFAULTS[args.path]
+        make = (make_sweep_golden if args.path == "sweep"
+                else make_estimated_golden)
     out = args.out or out
-    golden = make_golden(args.batch or batch, args.ticks or ticks, args.seed,
-                         plant=args.plant)
+    golden = make(args.batch or batch, args.ticks or ticks, args.seed)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **golden)
     print(f"wrote {out}: {len(golden)} arrays, {os.path.getsize(out)} bytes")

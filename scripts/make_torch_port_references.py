@@ -30,8 +30,25 @@ ulp-perturbed copies of each rollout's worst QP (where the reference's
 own outcome is chaotic). Regenerate it after refreshing the recorded
 QPs.
 
+The slice-4 file (``tests/data/torch_port_slice4_refs.npz``) holds the
+inputs and JAX outputs of ``tests/test_torch_{terrain,sweep,estimated}.py``:
+
+* ``terrain/``: ``Heightfield.from_height_array`` on three maps of one
+  shape (``tests/test_terrain.py``'s bumps, its steep-walled pit, and a
+  one-cell spike on a map of binary-fraction cells whose four diagonal
+  neighbours tie in the foothold search), ``height_at`` / ``normal_at`` /
+  ``traversability_at`` / ``cell_index`` at seeded points (clamped
+  borders included) and ``optimize_footholds`` with and without hips;
+* ``gait_b6/``, ``gait_b4/``: ten ticks of ``gait_generator.advance``
+  with per-scenario maps and per-scenario (trot/pace, then scaled)
+  ``GaitParams`` on perturbed states;
+* ``sweep/``: ``bench.build_scenarios(16)`` and ``jax.image.resize`` of
+  its coarse grid;
+* ``ekf/``: ``state_estimator.predict``, ``update`` and
+  ``synthesize_imu`` on seeded states.
+
     JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
-        [--file slice2|fd_qp|all]
+        [--file slice2|fd_qp|slice4|all]
 
 Takes about two minutes per file on a CPU, most of it XLA compilation and
 the eager kernel trace. The tests recompute each section live under
@@ -51,6 +68,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
 DEFAULT_OUT = os.path.join(DATA, "torch_port_slice2_refs.npz")
 FD_QP_OUT = os.path.join(DATA, "torch_port_fd_qp_refs.npz")
+SLICE4_OUT = os.path.join(DATA, "torch_port_slice4_refs.npz")
 CHIP_QPS = os.path.join(DATA, "torch_port_chip_qps.npz")
 
 TILE = 1024  # one (8, 128) tile of the JAX kernel trace
@@ -382,11 +400,321 @@ def fd_qp_references() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 4: terrain, mixed gaits, the sweep's scenarios, the EKF
+# ---------------------------------------------------------------------------
+
+TERRAIN_CELLS = 100
+TERRAIN_POINTS = 64
+GAIT_TICKS = 10
+GAIT_BATCHES = (6, 4)  # B = 4: a (B,) leaf against the leg axis broadcasts
+GAIT_FLAT_ZONE = (0.3, 0.2)  # small, so the footholds reach the bumps
+SWEEP_BATCH = 16
+B_EKF = 6
+EKF_DT = 0.0025
+
+
+def terrain_inputs() -> dict:
+    """Three maps of one shape: tests/test_terrain.py's ±3 cm bumps and its
+    20 cm pit (2 cm cells), and a 0.5 m one-cell spike on 1/16 m cells
+    (exact binary-fraction centres) at (0, 0); per-scenario origin and
+    resolution. Seeded query points over and beyond the maps, and nominal
+    footholds: seeded ones, the pit's centre, and the spike cell's centre
+    (its four diagonal neighbours are traversable and equidistant)."""
+    n = TERRAIN_CELLS
+    rng = np.random.default_rng(3)
+    res = np.array([0.02, 0.02, 0.0625], np.float32)
+    origin = np.array([[-1.0, -1.0], [-1.0, -1.0], [-3.125, -3.125]],
+                      np.float32)
+    xs = -1.0 + np.arange(n) * 0.02
+    X, Y = np.meshgrid(xs, xs)
+    bumps = 0.03 * np.sin(2 * np.pi * X / 0.9) * np.cos(2 * np.pi * Y / 1.1)
+    pit = np.zeros((n, n))
+    pit[(X - 0.3) ** 2 + Y ** 2 < 0.06 ** 2] = -0.2
+    spike = np.zeros((n, n))
+    spike[50, 50] = 0.5  # the cell centred on (0, 0)
+    height = np.stack([bumps, pit, spike]).astype(np.float32)
+    lo, hi = origin - 0.3, origin + (n - 1) * res[:, None] + 0.3
+    points = rng.uniform(lo[:, None, :], hi[:, None, :],
+                         (3, TERRAIN_POINTS, 2)).astype(np.float32)
+    points[:, :4] = np.stack([lo, hi, np.stack([lo[:, 0], hi[:, 1]], -1),
+                              origin], 1)  # corners, beyond them, cell (0, 0)
+    nominal = np.concatenate([
+        rng.uniform(-0.6, 0.6, (3, 4, 2)), np.zeros((3, 4, 1))], -1)
+    nominal[1, 0, :2] = [0.3, 0.0]  # on the pit
+    nominal[2, 0, :2] = [0.0, 0.0]  # on the spike: a four-way tie
+    nominal[2, 1, :2] = [0.0625, 0.0]  # beside it
+    nominal = nominal.astype(np.float32)
+    hips = nominal + np.array([0.0, 0.0, 0.4], np.float32)
+    return {"height": height, "origin": origin, "resolution": res,
+            "points": points, "nominal": nominal, "hips": hips}
+
+
+def terrain_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.terrain import heightfield as jh
+
+    inp = terrain_inputs()
+    hf = jax.vmap(lambda h, o, r: jh.Heightfield.from_height_array(
+        h, origin=o, resolution=r))(*(jnp.asarray(inp[k]) for k in (
+            "height", "origin", "resolution")))
+    # resolution as a traced value: the normals' 2·res is then float32
+    # arithmetic, as the port's per-scenario resolution tensor gives it
+    pts = jnp.asarray(inp["points"])
+    per_point = lambda f: jax.vmap(lambda m, p: jax.vmap(  # noqa: E731
+        lambda q: f(m, q))(p))(hf, pts)
+    ix, iy = per_point(lambda m, q: m.cell_index(q))
+    out = {f"in/{k}": v for k, v in inp.items()}
+    out.update({f"hf/{k}": v for k, v in _tree(hf).items()})
+    out.update({
+        "height_at": per_point(lambda m, q: m.height_at(q)),
+        "normal_at": per_point(lambda m, q: m.normal_at(q)),
+        "traversability_at": per_point(lambda m, q: m.traversability_at(q)),
+        "cell_ix": ix, "cell_iy": iy,
+    })
+    nominal, hips = jnp.asarray(inp["nominal"]), jnp.asarray(inp["hips"])
+    for tag, fn in (("no_hips", lambda m, n, h: jh.optimize_footholds(m, n)),
+                    ("hips", jh.optimize_footholds)):
+        f, nrm, found = jax.vmap(fn)(hf, nominal, hips)
+        out.update({f"{tag}/footholds": f, f"{tag}/normals": nrm,
+                    f"{tag}/found": found})
+    return out
+
+
+def mixed_gait_params(batch: int) -> dict:
+    """Per-scenario GaitParams (numpy, the JAX field layout): scenario i
+    paces where i % 4 == 3 (bench.py's interleave), then every leaf is
+    scaled by a seeded factor in [0.9, 1.1] so that no two scenarios
+    share their parameters (vel_cmd_blend in [0.8, 1])."""
+    from quadruped_locomotion_tpu.gait.phase import GaitParams
+
+    rng = np.random.default_rng(5)
+    trot, pace = _tree(GaitParams.trot_defaults()), _tree(GaitParams.pace_defaults())
+    is_pace = np.arange(batch) % 4 == 3
+    out = {}
+    for k in trot:
+        a = np.where(is_pace.reshape((-1,) + (1,) * trot[k].ndim),
+                     pace[k], trot[k])
+        scale = (rng.uniform(0.8, 1.0, a.shape) if k == "vel_cmd_blend"
+                 else rng.uniform(0.9, 1.1, a.shape))
+        out[k] = (a * scale).astype(np.float32)
+    return out, is_pace
+
+
+def sweep_heights(batch: int, seed: int, flat_zone) -> dict:
+    """bench.build_scenarios' terrain draws (after its velocity draws) with
+    the flat spawn box's half-widths set to ``flat_zone``: (B, 48, 48)
+    heights, through jax.image.resize as bench.py does."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    for _ in range(6):
+        rng.uniform(size=batch)  # vx, vy, wz: both branches each
+    coarse = jnp.asarray(rng.normal(size=(batch, 8, 8)), jnp.float32)
+    rough = jax.image.resize(coarse, (batch, 48, 48), method="cubic")
+    amp = np.where(np.arange(batch) % 4 == 2, 0.0,
+                   rng.uniform(0.01, 0.03, batch)).astype(np.float32)
+    xs = -2.4 + np.arange(48) * 0.1
+    gx, gy = np.meshgrid(xs, xs, indexing="xy")
+    box = np.maximum(np.abs(gx) / flat_zone[0], np.abs(gy) / flat_zone[1])
+    ramp = jnp.asarray(np.clip((box - 1.0) / 0.4, 0.0, 1.0), jnp.float32)
+    return np.asarray(rough * amp[:, None, None] * ramp[None])
+
+
+def perturbed_stance(batch: int, rng) -> dict:
+    """``batch`` seeded robot states around the standing start (numpy
+    dicts in the SimState layout)."""
+    from quadruped_locomotion_tpu.rollout import simulator as jsim
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    sim = _tree(jsim.default_stance_state(RobotModel.simpledog()))
+
+    def tile(t):
+        return ({k: tile(v) for k, v in t.items()} if isinstance(t, dict)
+                else np.broadcast_to(t, (batch,) + t.shape).copy())
+
+    sim = tile(sim)
+    base = sim["robot"]["base"]
+    yaw = rng.uniform(-0.3, 0.3, batch)
+    base["quaternion"] = np.stack([np.cos(yaw / 2), np.zeros(batch),
+                                   np.zeros(batch), np.sin(yaw / 2)],
+                                  -1).astype(np.float32)
+    base["position"] = (base["position"] + rng.uniform(
+        -0.02, 0.02, (batch, 3))).astype(np.float32)
+    base["linear_velocity"] = rng.normal(0, 0.1, (batch, 3)).astype(np.float32)
+    base["angular_velocity"] = rng.normal(0, 0.1, (batch, 3)).astype(np.float32)
+    sim["robot"]["q"] = (sim["robot"]["q"] + rng.normal(
+        0, 0.03, (batch, 4, 3))).astype(np.float32)
+    sim["robot"]["qd"] = rng.normal(0, 0.5, (batch, 4, 3)).astype(np.float32)
+    sim["feet_world"] = (sim["feet_world"] + rng.normal(
+        0, 0.01, (batch, 4, 3))).astype(np.float32)
+    return sim
+
+
+def gait_references(batch: int) -> dict:
+    """GAIT_TICKS ticks of the JAX gait engine over ``batch`` perturbed
+    states (held fixed, as tests/test_torch_gait_sim.py does) with
+    per-scenario maps (the sweep's generator, GAIT_FLAT_ZONE) and
+    per-scenario GaitParams, from the mixed trot/pace init."""
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.gait import gait_generator as jgg
+    from quadruped_locomotion_tpu.gait import phase as jphase
+    from quadruped_locomotion_tpu.gait.phase import GaitParams
+    from quadruped_locomotion_tpu.terrain.heightfield import Heightfield
+    from quadruped_locomotion_tpu.types import BaseState, RobotModel, RobotState
+
+    rng = np.random.default_rng(10 + batch)
+    model = RobotModel.simpledog()
+    gp_np, is_pace = mixed_gait_params(batch)
+    gp = GaitParams(**{k: jnp.asarray(v) for k, v in gp_np.items()})
+    sim = perturbed_stance(batch, rng)
+    lin = np.stack([rng.uniform(-0.1, 0.4, batch), rng.uniform(-0.1, 0.1, batch),
+                    np.zeros(batch)], -1).astype(np.float32)
+    wz = rng.uniform(-0.3, 0.3, batch).astype(np.float32)
+    height = sweep_heights(batch, 20 + batch, GAIT_FLAT_ZONE)
+    hf = jax.vmap(lambda h: Heightfield.from_height_array(
+        h, origin=(-2.4, -2.4), resolution=0.1))(jnp.asarray(height))
+
+    r = sim["robot"]
+    robot = RobotState(
+        base=BaseState(**{k: jnp.asarray(v) for k, v in r["base"].items()}),
+        **{k: jnp.asarray(v) for k, v in r.items() if k != "base"})
+    feet = jnp.asarray(sim["feet_world"])
+
+    def init(g, f, pace):
+        trot_s = jgg.init_gait_state(jphase.TROT, g, f)
+        pace_s = jgg.init_gait_state(jphase.PACE, g, f)
+        return jax.tree_util.tree_map(lambda a, b: jnp.where(pace, b, a),
+                                      trot_s, pace_s)
+
+    gait = jax.vmap(init)(gp, feet, jnp.asarray(is_pace))
+    adv = jax.jit(jax.vmap(lambda g, r, f, v, w, p, t: jgg.advance(
+        model, g, r, f, p, v, w, 0.01, terrain=t)))
+    out = {"in/gait_params/" + k: v for k, v in gp_np.items()}
+    out.update({"in/is_pace": is_pace, "in/lin": lin, "in/wz": wz,
+                "in/height": height})
+    out.update(_flatten(sim, "in/sim/"))
+    out.update(_flatten(_tree(gait), "gait0/"))
+    ticks = []
+    for _ in range(GAIT_TICKS):
+        gait, sup, sw, tgt, nrm = adv(gait, robot, feet, jnp.asarray(lin),
+                                      jnp.asarray(wz), gp, hf)
+        ticks.append({"support": sup, "pos": sw[0], "vel": sw[1],
+                      "acc": sw[2], "target": _tree(tgt), "normals": nrm,
+                      "swing_targets": gait.swing_targets,
+                      "base_ref_pos": gait.base_ref_pos})
+    for k in ticks[0]:
+        if isinstance(ticks[0][k], dict):
+            for f in ticks[0][k]:
+                out[f"tick/{k}/{f}"] = np.stack([np.asarray(t[k][f])
+                                                 for t in ticks])
+        else:
+            out[f"tick/{k}"] = np.stack([np.asarray(t[k]) for t in ticks])
+    return out
+
+
+def gait_b6_references() -> dict:
+    return gait_references(GAIT_BATCHES[0])
+
+
+def gait_b4_references() -> dict:
+    return gait_references(GAIT_BATCHES[1])
+
+
+def sweep_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, ROOT)
+    import bench
+
+    ls, cmd, gp, hf, axes = bench.build_scenarios(SWEEP_BATCH)
+    coarse = np.random.default_rng(7).normal(size=(SWEEP_BATCH, 8, 8)
+                                             ).astype(np.float32)
+    out = _flatten({"ls0": _tree(ls), "cmd": _tree(cmd),
+                    "gait_params": _tree(gp), "terrain": _tree(hf)})
+    out.update({"resize/coarse": coarse, "resize/fine": jax.image.resize(
+        jnp.asarray(coarse), (SWEEP_BATCH, 48, 48), method="cubic"),
+        "axes": np.asarray(axes)})
+    return out
+
+
+def ekf_inputs() -> dict:
+    """B_EKF seeded filter states and sensor samples: perturbed stance
+    poses, feet near their FK positions, a covariance grown by random
+    factors, mixed contacts, a short recorded base trajectory."""
+    rng = np.random.default_rng(11)
+    sim = perturbed_stance(B_EKF, rng)
+    base = sim["robot"]["base"]
+    M = rng.normal(size=(B_EKF, 21, 21)) * 0.01
+    P = np.einsum("bij,bkj->bik", M, M) + np.eye(21) * 1e-4
+    contact = rng.random((B_EKF, 4)) < 0.7
+    contact[0] = True
+    T = 7
+    t = np.arange(T)[:, None] * EKF_DT
+    traj_pos = (base["position"][None] + np.sin(
+        3.0 * t[..., None] + rng.uniform(0, 1, (1, B_EKF, 3))) * 0.02)
+    ang = rng.normal(0, 0.2, (1, B_EKF, 3)) * t[..., None] + rng.normal(
+        0, 0.05, (1, B_EKF, 3))
+    half = np.linalg.norm(ang, axis=-1, keepdims=True) / 2
+    quat = np.concatenate([np.cos(half), np.sin(half) * ang / np.maximum(
+        2 * half, 1e-12)], -1)
+    return {
+        "position": base["position"],
+        "velocity": base["linear_velocity"],
+        "quaternion": base["quaternion"],
+        "foot_positions": (sim["feet_world"] + rng.normal(
+            0, 0.005, (B_EKF, 4, 3))).astype(np.float32),
+        "covariance": P.astype(np.float32),
+        "gyro": rng.normal(0, 0.3, (B_EKF, 3)).astype(np.float32),
+        "accel": (np.array([0.0, 0.0, 9.8]) + rng.normal(
+            0, 0.5, (B_EKF, 3))).astype(np.float32),
+        "q": sim["robot"]["q"],
+        "contact": contact,
+        "traj_pos": traj_pos.astype(np.float32),
+        "traj_quat": quat.astype(np.float32),
+    }
+
+
+def ekf_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.control import state_estimator as se
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    inp = ekf_inputs()
+    model, params = RobotModel.simpledog(), se.EstimatorParams.defaults()
+    est = se.EstimatorState(**{k: jnp.asarray(inp[k]) for k in (
+        "position", "velocity", "quaternion", "foot_positions", "covariance")})
+    pred = jax.vmap(lambda e, g, a, c: se.predict(params, e, g, a, c, EKF_DT))(
+        est, *(jnp.asarray(inp[k]) for k in ("gyro", "accel", "contact")))
+    upd = jax.vmap(lambda e, q, c: se.update(model, params, e, q, c))(
+        est, jnp.asarray(inp["q"]), jnp.asarray(inp["contact"]))
+    gyro, accel = jax.vmap(lambda q, p: se.synthesize_imu(q, p, EKF_DT),
+                           in_axes=1, out_axes=1)(
+        jnp.asarray(inp["traj_quat"]), jnp.asarray(inp["traj_pos"]))
+    out = {f"in/{k}": v for k, v in inp.items()}
+    out.update(_flatten(_tree(pred), "predict/"))
+    out.update(_flatten(_tree(upd), "update/"))
+    out.update({"imu/gyro": gyro, "imu/accel": accel})
+    return out
+
+
 SECTIONS = {"qp": qp_references, "headline": headline_references,
             "articulated": articulated_references,
-            "fd_qp": fd_qp_references}
+            "fd_qp": fd_qp_references, "terrain": terrain_references,
+            "gait_b6": gait_b6_references, "gait_b4": gait_b4_references,
+            "sweep": sweep_references, "ekf": ekf_references}
 FILES = {"slice2": (DEFAULT_OUT, ("qp", "headline", "articulated")),
-         "fd_qp": (FD_QP_OUT, ("fd_qp",))}
+         "fd_qp": (FD_QP_OUT, ("fd_qp",)),
+         "slice4": (SLICE4_OUT, ("terrain", "gait_b6", "gait_b4", "sweep",
+                                 "ekf"))}
 
 
 def make_references(sections) -> dict:

@@ -13,6 +13,11 @@
   (``headline.ChainGraph``) on ``headline.build_batch``.
 * ``load_factors``: ``PROFILE_CALLS`` load-factor double solves
   (``solve_fd_qp_batched(load_factors=...)``) on ``chip_smoke.lf_batch``.
+* ``sweep``: the config-5 scenario sweep (``sweep.build_scenarios``:
+  per-scenario heightfields, the trot/pace mix, articulated plant),
+  timed and profiled as the rollouts are.
+* ``estimated``: the EKF-estimated closed loop at ``chip_smoke.EST_BATCH``
+  scenarios with realistic sensors, timed and profiled per tick.
 
 Each profile window (``torch.profiler``, CPU and CUDA activities) prints
 the device busy share (summed device time over the window's wall time),
@@ -42,7 +47,8 @@ sys.path.insert(0, str(ROOT))
 TICKS = 10  # timed warm planner ticks
 PROFILE_TICKS = 2  # ticks under torch.profiler
 PROFILE_CALLS = 5  # QP calls (or graph replays) under torch.profiler
-PATHS = ("articulated", "massless", "none", "headline", "load_factors")
+PATHS = ("articulated", "massless", "none", "headline", "load_factors",
+         "sweep", "estimated")
 
 
 def profile_window(path: str, fn, per: int, unit: str):
@@ -85,13 +91,21 @@ def profile_rollout(plant: str, dev) -> None:
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
 
     B = chip_smoke.BATCH
-    model, params, gp, ls, cmd = chip_smoke.setup_rollout(B, dev)
+    terrain = None
+    if plant == "sweep":
+        from quadruped_locomotion_tpu_torch import sweep
+
+        sc = sweep.build_scenarios(B, chip_smoke.SEED, dev)
+        model, params, gp, ls, cmd = sc.rollout_args()
+        terrain, plant = sc.terrain, sweep.PLANT
+    else:
+        model, params, gp, ls, cmd = chip_smoke.setup_rollout(B, dev)
     state = {"ls": ls}
 
     def ticks(n):
         for _ in range(n):
             state["ls"], _ = cl.planner_tick(model, params, gp, state["ls"],
-                                             cmd, plant=plant)
+                                             cmd, terrain=terrain, plant=plant)
 
     ticks(2)  # warm-up
     torch.cuda.synchronize()
@@ -99,10 +113,49 @@ def profile_rollout(plant: str, dev) -> None:
     ticks(TICKS)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / TICKS
-    print(json.dumps({"plant": plant, "batch": B, "wall_s_per_tick": wall,
+    path = "sweep" if terrain is not None else plant
+    print(json.dumps({"path": path, "plant": plant, "batch": B,
+                      "wall_s_per_tick": wall,
                       "scenario_sim_s_per_wall_s": B * cl.PLANNER_DT / wall}),
           flush=True)
-    profile_window(plant, lambda: ticks(PROFILE_TICKS),
+    profile_window(path, lambda: ticks(PROFILE_TICKS),
+                   PROFILE_TICKS * cl.CONTROL_SUBSTEPS, "substep")
+
+
+def profile_estimated(dev) -> None:
+    import chip_smoke
+    from quadruped_locomotion_tpu_torch.control import state_estimator as se
+    from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.rollout import estimated_loop as el
+    from quadruped_locomotion_tpu_torch.types import RobotModel
+
+    B = chip_smoke.EST_BATCH
+    model, gp = RobotModel.simpledog(dev), GaitParams.trot_defaults(dev)
+    args = (model, ControllerParams.defaults(dev), gp.per_scenario(B),
+            se.EstimatorParams.defaults(dev), el.SensorParams.realistic(dev))
+    cmd = cl.Command(
+        linear_velocity=torch.tensor([0.2, 0.0, 0.0], device=dev).expand(B, 3),
+        yaw_rate=torch.zeros(B, device=dev))
+    state = {"els": el.init_estimated(model, gp, B, seed=chip_smoke.SEED,
+                                      device=dev)}
+
+    def ticks(n):
+        for _ in range(n):
+            state["els"], _ = el.planner_tick_estimated(*args, state["els"],
+                                                        cmd)
+
+    ticks(2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks(TICKS)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TICKS
+    print(json.dumps({"path": "estimated", "batch": B, "wall_s_per_tick": wall,
+                      "scenario_sim_s_per_wall_s": B * cl.PLANNER_DT / wall}),
+          flush=True)
+    profile_window("estimated", lambda: ticks(PROFILE_TICKS),
                    PROFILE_TICKS * cl.CONTROL_SUBSTEPS, "substep")
 
 
@@ -157,6 +210,8 @@ def main() -> int:
     fk.build_kernel()
     if path in ("headline", "load_factors"):
         profile_qp(path, dev)
+    elif path == "estimated":
+        profile_estimated(dev)
     else:
         profile_rollout(path, dev)
     return 0

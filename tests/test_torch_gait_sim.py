@@ -234,14 +234,33 @@ def test_gait_advance_ten_flat_trot_ticks(gait_params):
         _assert_tree_close(convert.to_numpy(tg), jax_to_numpy(jg), VEL)
 
 
-def test_gait_advance_rejects_terrain(gait_params):
+def test_gait_advance_runs_terrain(gait_params):
+    """Terrain runs: on flat per-scenario maps the gait engine gives the
+    flat-ground support, targets snapped to the maps' cell centres and
+    upright normals."""
+    from quadruped_locomotion_tpu_torch.terrain.heightfield import Heightfield
+
     _, tp = gait_params
     tm = TRobotModel.simpledog(device="cpu")
-    sim = tsim.default_stance_state(tm, batch=(1,))
+    sim = tsim.default_stance_state(tm, batch=(B,))
     g = tgg.init_gait_state(tphase.TROT, tp, sim.feet_world)
-    with pytest.raises(NotImplementedError, match="terrain"):
-        tgg.advance(tm, g, sim.robot, sim.feet_world, tp,
-                    torch.zeros(1, 3), torch.zeros(1), DT, terrain=object())
+    lin = torch.tensor([[0.2, 0.0, 0.0]] * B)
+    hf = Heightfield.flat(B, device="cpu")
+    gf, sup_f, _, _, _ = tgg.advance(tm, g, sim.robot, sim.feet_world, tp,
+                                     lin, torch.zeros(B), DT)
+    gt, sup_t, (pos, _, _), _, nrm = tgg.advance(
+        tm, g, sim.robot, sim.feet_world, tp, lin, torch.zeros(B), DT,
+        terrain=hf)
+    torch.testing.assert_close(sup_t, sup_f)
+    lifted = ~sup_t  # the legs whose targets were set this tick
+    assert lifted.any()
+    cells = (gt.swing_targets[lifted][:, :2] + 4.0) / 0.04
+    torch.testing.assert_close(cells, torch.round(cells), atol=1e-4, rtol=0)
+    torch.testing.assert_close(gt.swing_targets, gf.swing_targets, atol=0.021,
+                               rtol=0)
+    torch.testing.assert_close(nrm, torch.tensor([0.0, 0.0, 1.0]).expand(
+        B, 4, 3))
+    assert torch.isfinite(pos).all()
 
 
 # ---------------------------------------------------------------- plant
