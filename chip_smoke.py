@@ -57,15 +57,16 @@ Phases, each of which raises (exit code 1) when a gate fails:
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
-   planner ticks (default 100) in 10-tick chunks after a one-tick
-   warm-up. Gates: exactly 4 kernel launches per tick (the warm-up's
-   included), finite telemetry, upright fraction (base over the local
-   ground > 0.25 m) >= 0.9 (bench.py's health check), QP KKT p99 <= 1e-2,
-   the sweep's worst-KKT QP re-solved alone gives its in-loop answer bit
-   for bit, and a 5-tick rerun through the plain QP agrees with a 5-tick
-   kernel run on base positions within 1e-3 m. Prints the scenario-
-   seconds per wall-second, the KKT tail and the share of scenarios whose
-   foothold search picked a cell other than the nominal foothold's own.
+   planner ticks (default 100) after a one-tick warm-up, with the
+   worst-QP and foothold taps inside the timed window. Gates: exactly 4
+   kernel launches per tick (the warm-up's included), finite telemetry,
+   upright fraction (base over the local ground > 0.25 m) >= 0.9
+   (bench.py's health check), QP KKT p99 <= 1e-2, the sweep's worst-KKT
+   QP re-solved alone gives its in-loop answer bit for bit, and a 5-tick
+   rerun through the plain QP agrees with a 5-tick kernel run on base
+   positions within 1e-3 m. Prints the scenario-seconds per wall-second,
+   the KKT tail and the share of scenarios whose foothold search picked a
+   cell other than the nominal foothold's own.
 10. The EKF-estimated closed loop (``rollout_estimated``) at B = 1024 for
    ``--est-ticks`` ticks (default 100), trot at 0.2 m/s, realistic
    sensors from a seeded generator on the card. Gates (the bounds of
@@ -765,7 +766,7 @@ def check_sweep(batch: int, ticks: int, device, dump: dict | None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with WorstQp(fk) as tap, FootholdTap(hfm) as feet:
         fk.launches = 0
-        res = sweep.measure(batch, ticks, chunk=10, device=device)
+        res = sweep.measure(batch, ticks, device=device)
         launches = fk.launches
     want = (ticks + 1) * cl.CONTROL_SUBSTEPS  # the warm-up tick included
     res.update(launches=launches,

@@ -97,15 +97,17 @@ def init_estimated(
     gait_params: GaitParams,
     batch: int,
     seed: int = 0,
+    gait_type: int = 0,
     init_pos_err: float = 0.0,
     device=None,
 ) -> EstimatedLoopState:
-    """Standing trot starts of ``batch`` scenarios on ``device`` (default
-    CUDA; raises where it is absent), the EKF at the true pose (plus
-    ``init_pos_err`` along (1, -1, 0.5)) and a noise generator seeded
-    with ``seed`` on that device."""
+    """Standing starts of ``batch`` scenarios in gait ``gait_type`` on
+    ``device`` (default CUDA; raises where it is absent), the EKF at the
+    true pose (plus ``init_pos_err`` along (1, -1, 0.5)) and a noise
+    generator seeded with ``seed`` on that device."""
     dev = resolve_device(device)
-    ls = init_locomotion(model, gait_params, batch, device=dev)
+    ls = init_locomotion(model, gait_params, batch, gait_type=gait_type,
+                         device=dev)
     truth = ls.sim.robot.base
     pos0 = truth.position + init_pos_err * truth.position.new_tensor(
         [1.0, -1.0, 0.5])

@@ -142,25 +142,20 @@ def build_scenarios(batch: int, seed: int = 0, device=None) -> Scenarios:
     return Scenarios(model, params, gp, ls0, cmd, terrain)
 
 
-def run(sc: Scenarios, ticks: int, chunk: int = 10, qp_backend: str = "auto"):
-    """``ticks`` planner ticks of the scenarios from their start, in
-    rollouts of ``chunk`` ticks, on the scenarios' device. Returns (final
-    state, telemetry of every tick: (T, B, ...))."""
-    ls, dev = sc.ls0, sc.ls0.sim.feet_world.device
-    tel = []
-    for start in range(0, ticks, chunk):
-        ls, t = cl.rollout(sc.model, sc.params, sc.gait_params, ls,
-                           sc.command, min(chunk, ticks - start),
-                           terrain=sc.terrain, plant=PLANT,
-                           qp_backend=qp_backend, device=dev)
-        tel.append(t)
-    return ls, {k: torch.cat([t[k] for t in tel]) for k in tel[0]}
+def run(sc: Scenarios, ticks: int, qp_backend: str = "auto"):
+    """``ticks`` planner ticks of the scenarios from their start on the
+    scenarios' device. Returns (final state, telemetry of every tick:
+    (T, B, ...))."""
+    return cl.rollout(sc.model, sc.params, sc.gait_params, sc.ls0,
+                      sc.command, ticks, terrain=sc.terrain, plant=PLANT,
+                      qp_backend=qp_backend,
+                      device=sc.ls0.sim.feet_world.device)
 
 
 def _summarize(sc: Scenarios, tel: dict, wall_s: float) -> dict:
     """bench.py's sweep fields. ``upright_frac``: the share of scenarios
     whose final base height over the ground under it exceeds 0.25 m;
-    ``p99_kkt`` over every tick and scenario (bench takes the last
+    ``p99_kkt`` over every tick and scenario (bench takes its last
     chunk's)."""
     base = tel["base_position"]
     T, B = base.shape[:2]
@@ -180,8 +175,7 @@ def _summarize(sc: Scenarios, tel: dict, wall_s: float) -> dict:
     }
 
 
-def measure(batch: int = 4096, ticks: int = 100, chunk: int = 10,
-            device=None) -> dict:
+def measure(batch: int = 4096, ticks: int = 100, device=None) -> dict:
     """Time the whole closed loop (gait engine, contact FSM, controller,
     one batched QP launch per control substep, articulated plant) over
     ``batch`` config-5 scenarios for ``ticks`` planner ticks, after a
@@ -196,6 +190,6 @@ def measure(batch: int = 4096, ticks: int = 100, chunk: int = 10,
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    _, tel = run(sc, ticks, chunk)
+    _, tel = run(sc, ticks)
     sync()
     return _summarize(sc, tel, time.perf_counter() - t0)

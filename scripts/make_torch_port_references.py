@@ -23,7 +23,9 @@ The QP-kernel file (``tests/data/torch_port_fd_qp_refs.npz``) has one
 section, ``fd_qp/``: the problems of ``tests/test_torch_fd_qp.py`` (the
 stance classes of ``tests/test_qp_pallas.py::_stance_problems`` with G, g
 formed at full precision, seeded random positive-definite QPs, then the
-QPs recorded on the card in ``tests/data/torch_port_chip_qps.npz``) and
+QPs recorded on the card in ``tests/data/torch_port_chip_qps.npz``: the
+phase-3 violators and the worst-KKT QPs of the massless and articulated
+rollouts and of the config-5 sweep) and
 what the JAX kernel trace (``qp_pallas.solve_fd_qp_emulated``) and the
 XLA IPM (``jax.vmap(qp.solve_qp)``) return on them, plus the trace on 63
 ulp-perturbed copies of each rollout's worst QP (where the reference's
@@ -84,7 +86,7 @@ FD_ITERS = 15
 FD_N_RANDOM = 8
 # rows of the recorded chip QPs, in order: chip_smoke.py's --dump prefixes
 FD_CHIP_ROWS = {"chip_violators": "violators", "rollout_worst": "worst",
-                "articulated_worst": "art_worst"}
+                "articulated_worst": "art_worst", "sweep_worst": "sweep_worst"}
 # the rows (one QP each) whose outcome is chaotic: the kernel trace also
 # runs on FD_ENSEMBLE - 1 copies with every entry moved by -1, 0 or +1 ulp
 FD_ENSEMBLE_ROWS = ("rollout_worst", "articulated_worst")

@@ -11,9 +11,9 @@ package.
   scenarios, 10 ticks, articulated plant, against the JAX golden
   ``tests/data/torch_port_estimated_golden.npz``
   (``scripts/make_torch_port_golden.py --path estimated``). Both run the
-  generic IPM per scenario; tolerances as the flat golden's: 1e-4 m
-  after one tick, 5e-3 m over all ticks, leg states exactly, and the
-  estimator's errors within 1e-3.
+  generic IPM per scenario: base positions within 1e-4 m over all ticks,
+  leg states exactly, the estimator's errors within 1e-5 and its
+  velocity within 1e-4 m/s (observed: ≤ 3.4e-7).
 * Realistic sensors, which cannot match JAX's key streams, are checked
   statistically: the noise is present and seeded, and the estimate stays
   within the JAX package's own test bounds of the truth.
@@ -42,6 +42,7 @@ REFS = ROOT / "tests" / "data" / "torch_port_slice4_refs.npz"
 GOLDEN = ROOT / "tests" / "data" / "torch_port_estimated_golden.npz"
 sys.path.insert(0, str(ROOT / "scripts"))
 import make_torch_port_references as make_refs  # noqa: E402
+from make_torch_port_golden import flatten  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -179,7 +180,7 @@ def _compare(golden, port):
     np.testing.assert_allclose(port["est_position"][0],
                                ref["est_position"][0], atol=1e-4, rtol=0)
     np.testing.assert_allclose(port["base_position"], ref["base_position"],
-                               atol=5e-3, rtol=0)
+                               atol=1e-4, rtol=0)
     np.testing.assert_array_equal(port["leg_state"], ref["leg_state"])
 
 
@@ -190,15 +191,45 @@ def test_estimated_loop_matches_jax_golden(golden, port_telemetry):
 @pytest.mark.parametrize("field", ["pos_err", "vel_err", "est_velocity",
                                    "feet_world", "qp_kkt"])
 def test_estimated_fields_track_golden(golden, port_telemetry, field):
-    """The estimator's errors within 1e-3, its velocity within 5e-2 m/s,
-    feet within 5e-3 m; both sides' QP KKT below 1e-2."""
+    """The estimator's errors within 1e-5, its velocity within 1e-4 m/s,
+    feet within 1e-4 m; both sides' QP KKT below 1e-2. Observed on a CPU:
+    |Δ| ≤ 5.9e-8 m (pos_err, against values up to 2.8e-4 m), 3.4e-7 m/s
+    (vel_err, up to 1.1e-3 m/s), 1.8e-7 m/s (est_velocity), 9e-8 m
+    (feet_world) and 3e-8 m (base_position, held within 1e-4 m above)."""
     got, want = port_telemetry[field], golden[f"tel/{field}"]
     if field == "qp_kkt":
         assert got.max() < 1e-2 and want.max() < 1e-2
         return
-    tol = {"pos_err": 1e-3, "vel_err": 1e-3, "est_velocity": 5e-2,
-           "feet_world": 5e-3}[field]
+    tol = {"pos_err": 1e-5, "vel_err": 1e-5, "est_velocity": 1e-4,
+           "feet_world": 1e-4}[field]
     np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("gait_type", [0, 1], ids=["trot", "pace"])
+def test_init_estimated_starts_in_its_gait(golden, gait_type):
+    """``init_estimated(gait_type=)`` starts the loop from
+    ``init_locomotion`` in that gait, as the JAX package's does; the trot
+    start (loop and EKF) is the golden's JAX ``init_estimated`` within
+    1e-6 (the inverse kinematics differs by an ulp)."""
+    B = int(golden["meta/batch"])
+    model, gp = RobotModel.simpledog("cpu"), GaitParams.trot_defaults("cpu")
+    els = el.init_estimated(model, gp, B, gait_type=gait_type, device="cpu")
+    want = cl.init_locomotion(model, gp, B, gait_type=gait_type, device="cpu")
+    got = flatten(convert.to_numpy(els.loop))
+    ref = flatten(convert.to_numpy(want))
+    assert got.keys() == ref.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    trot = flatten(convert.to_numpy(
+        cl.init_locomotion(model, gp, B, device="cpu").gait))
+    gait = flatten(convert.to_numpy(els.loop.gait))
+    assert (gait_type == 0) == all(np.array_equal(gait[k], trot[k])
+                                   for k in trot)
+    if gait_type == 0:
+        for part, obj in (("loop0/", els.loop), ("est0/", els.est)):
+            for k, v in flatten(convert.to_numpy(obj), part).items():
+                np.testing.assert_allclose(v, golden[k], atol=1e-6, rtol=0,
+                                           err_msg=k)
 
 
 @pytest.mark.slow

@@ -9,8 +9,9 @@ random positive-definite QPs, and the QPs that the GPU smoke run's gates
 single out. The kernel itself runs only on the GPU (the smoke run holds
 it against this plain version there); what it returned on those QPs is
 recorded in ``tests/data/torch_port_chip_qps.npz``, written on an H100
-by ``python3 chip_smoke.py --dump tests/data/torch_port_chip_qps.npz``,
-and held against the JAX solvers here.
+by ``python3 chip_smoke.py --ticks 100 --dump
+tests/data/torch_port_chip_qps.npz``, and held against the JAX solvers
+here.
 
 The problems and the JAX solvers' answers are the committed ``fd_qp/``
 section of ``tests/data/torch_port_fd_qp_refs.npz``
@@ -84,7 +85,7 @@ def committed():
 def problems(committed):
     """(G, g, D, d) float32 numpy over every row, A/S/b/W of the stance
     rows, and ``rows``: the slices of the row groups (stance, random,
-    chip_violators, rollout_worst, articulated_worst)."""
+    chip_violators, rollout_worst, articulated_worst, sweep_worst)."""
     return committed[0]
 
 
@@ -122,7 +123,8 @@ def _rel_gap(a, b):
 
 
 GATES = {"stance": (1e-4, 5e-3), "random": (1e-5, 1e-4)}
-CHIP_KEYS = {"rollout_worst": "worst", "articulated_worst": "art_worst"}
+CHIP_KEYS = {"rollout_worst": "worst", "articulated_worst": "art_worst",
+             "sweep_worst": "sweep_worst"}
 # The (rows, solver) cases whose answer on the committed recording misses
 # the unperturbed kernel trace's window (PERF.md §6 lists the readings):
 # held against the trace's ulp ensemble instead. Every other case is held
@@ -185,7 +187,8 @@ def check_worst_qp(problems, solutions, chip, solver, rows):
         x, k = chip[f"{key}_x"], float(chip[f"{key}_kkt"])
     else:
         x, k = solutions["plain"][0][sl][0], solutions["plain"][3][sl][0]
-    ens_kkt, ens_x = solutions["ensemble"][rows]
+    ens_kkt, ens_x = solutions["ensemble"].get(  # member 0 where none
+        rows, (solutions["emulated_kkt"][sl][:1], solutions["emulated"][sl][:1]))
     assert ens_kkt[0] == k0
     np.testing.assert_array_equal(ens_x[0], solutions["emulated"][sl][0])
     if (rows, solver) not in ENSEMBLE_CASES:
@@ -241,6 +244,15 @@ def test_articulated_worst_qp_matches_reference(problems, solutions, chip,
     """The same for the QP with the largest KKT residual of the smoke
     run's 4096 x 50-tick articulated rollout."""
     check_worst_qp(problems, solutions, chip, solver, "articulated_worst")
+
+
+@pytest.mark.parametrize("solver", ["kernel", "plain"])
+def test_sweep_worst_qp_matches_reference(problems, solutions, chip, solver):
+    """The same for the QP with the largest KKT residual of the smoke
+    run's 4096 x 100-tick config-5 sweep (per-scenario terrain, trot/pace
+    mix): it ends outside the friction cone under the JAX kernel trace
+    too, and the kernel and the plain version end where the trace ends."""
+    check_worst_qp(problems, solutions, chip, solver, "sweep_worst")
 
 
 def test_committed_problems_hold_the_recorded_qps(problems, chip):

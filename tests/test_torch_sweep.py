@@ -216,7 +216,7 @@ def test_sweep_matches_live_jax():
 
 
 def test_measure_reports_bench_fields():
-    res = sweep.measure(8, ticks=1, chunk=1, device="cpu")
+    res = sweep.measure(8, ticks=1, device="cpu")
     assert res["batch"] == 8 and res["ticks"] == 1
     assert res["finite"] and res["upright_frac"] == 1.0
     assert res["rt_factor"] > 0 and res["wall_s"] > 0
