@@ -2,7 +2,9 @@
 against its plain PyTorch version, and drives every ported path through
 it: the massless and articulated closed loops, the QP headline, the
 load-factor double solve and the config-5 scenario sweep; then the
-EKF-estimated closed loop, whose generic QP does not use the kernel.
+EKF-estimated closed loop and scripted motion (the preview of every
+bundled motion script and its closed loop), whose generic QPs do not use
+the kernel.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -57,7 +59,8 @@ Phases, each of which raises (exit code 1) when a gate fails:
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
-   planner ticks (default 100) after a one-tick warm-up, with the
+   planner ticks (default 60, cut from 100 to make room for phases 11
+   and 12) after a one-tick warm-up, with the
    worst-QP and foothold taps inside the timed window. Gates: exactly 4
    kernel launches per tick (the warm-up's included), finite telemetry,
    upright fraction (base over the local ground > 0.25 m) >= 0.9
@@ -68,12 +71,37 @@ Phases, each of which raises (exit code 1) when a gate fails:
    the KKT tail and the share of scenarios whose foothold search picked a
    cell other than the nominal foothold's own.
 10. The EKF-estimated closed loop (``rollout_estimated``) at B = 1024 for
-   ``--est-ticks`` ticks (default 100), trot at 0.2 m/s, realistic
+   ``--est-ticks`` ticks (default 60, cut from 100 to make room for
+   phases 11 and 12), trot at 0.2 m/s, realistic
    sensors from a seeded generator on the card. Gates (the bounds of
    tests/test_estimated_loop.py): finite telemetry, base height in
-   (0.3, 0.5) m throughout, median velocity error over ticks 50-100
+   (0.3, 0.5) m throughout, median velocity error from tick 50 on
    < 0.12 m/s, every scenario's final position error < 0.25 m, and no
    kernel launch (its QP is the generic IPM, as in the JAX package).
+11. The kinematic preview of the 13 bundled motion scripts, each
+   compiled by the port's registry against the default 0.4 m stance and
+   previewed up to the committed JAX preview's end (its done tick + 10;
+   ``tests/data/torch_port_preview_golden.npz``). Gates: finite; step
+   index, support set and done flag equal to JAX's tick for tick; the
+   end reached; stance feet pinned exactly; base, feet and quaternion
+   within 1e-5 of JAX; no kernel launch. Prints seconds per script and
+   the device ops of a tick without a step entry and of a base_auto
+   entry (torch.profiler).
+12. The closed loop of scripted motion at B = 1 (``run_schedule``, the
+   generic QP): standup from tick 0 for ``--script-ticks`` ticks
+   (default 40) through the registry and ``init_script_state``, then
+   20 ticks of each JAX golden window from its committed ScriptState
+   (``tests/data/torch_port_script_golden.npz``): trot_test across a
+   touchdown and a lift-off, change_to_spot with RH under the joint
+   PID. Gates: finite; step index and desired support equal to JAX's
+   tick for tick; base positions within 1e-4 m of the goldens (standup
+   starts, as its golden does, with LF's hip abduction moved by 1e-5
+   rad: its roll rate grows ~10x per tick from any asymmetry in the
+   reference itself, and from the exact stance each run would grow it
+   from its own rounding); the JAX tests' bounds (standup done at 0.45
+   ± 0.02 m with the feet down, trot_test above 0.3 m, change_to_spot
+   above 0.15 m); no kernel launch. Prints seconds per tick and the
+   device ops of one tick.
 
 ``--dump PATH`` writes the QPs that the gates single out (the phase-3
 Dx >= d violators, the rollouts' and the sweep's worst-KKT QPs, the
@@ -862,6 +890,224 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phases 11-12: scripted motion (no kernel: its QPs are the generic IPM's)
+# --------------------------------------------------------------------------
+
+DATA = Path(__file__).resolve().parent / "tests" / "data"
+PREVIEW_GOLDEN = DATA / "torch_port_preview_golden.npz"
+SCRIPT_GOLDEN = DATA / "torch_port_script_golden.npz"
+PREVIEW_TOL = 1e-5  # m (base, feet) and quaternion units, against JAX
+SCRIPT_TOL = 1e-4  # m, base positions against the JAX goldens
+WINDOW_TICKS = 20  # ticks of each closed-loop golden window
+
+
+def device_ops(fn):
+    """Run ``fn`` under torch.profiler: (its result, the CUDA device ops
+    it issued (kernels and copies), their summed device seconds, the
+    window's wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (out, sum(e.count for e in ops),
+            sum(e.self_device_time_total for e in ops) * 1e-6, wall)
+
+
+def check_preview(device) -> dict:
+    """Phase 11: every bundled motion script, compiled by the registry
+    against the default stance, previewed up to the committed JAX
+    preview's end (its done tick + 10)."""
+    from quadruped_locomotion_tpu_torch.api.action_loader import default_registry
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.rollout import preview as pv
+    from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
+    from quadruped_locomotion_tpu_torch.planning import steps
+    from quadruped_locomotion_tpu_torch.types import RobotModel
+
+    golden = dict(np.load(PREVIEW_GOLDEN))
+    height = float(golden["meta/height"])
+    model = RobotModel.simpledog(device)
+    sim = simlib.default_stance_state(model, height=height)
+    reg = default_registry()
+    names = sorted(a.id for a in reg.list_actions() if a.type == "yaml")
+    if len(names) != 13:
+        raise AssertionError(f"expected the 13 bundled scripts: {names}")
+    compile_ = lambda n: reg.compile(  # noqa: E731
+        n, sim.robot.base.position, sim.robot.base.quaternion, sim.feet_world,
+        device=device)
+    fk.launches = 0
+    per, worst = {}, dict(base=0.0, feet=0.0, quat=0.0, joints=0.0)
+    for name in names:
+        sched = compile_(name)
+        ref = {k: golden[f"{name}/{k}"] for k in pv.StateBatch.__dataclass_fields__}
+        ticks, done_tick = len(ref["times"]), int(golden[f"{name}/done_tick"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = pv.preview_schedule(model, sched, height=height,
+                                    planner_ticks=ticks, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: getattr(batch, k).cpu().numpy() for k in ref}
+        if not all(np.isfinite(v).all() for v in got.values()
+                   if v.dtype.kind == "f"):
+            raise AssertionError(f"{name}: preview not finite")
+        for k in ("step_index", "support", "done"):
+            if not np.array_equal(got[k], ref[k]):
+                bad = np.flatnonzero((got[k] != ref[k]).reshape(ticks, -1).any(1))
+                raise AssertionError(f"{name}: {k} differs from JAX at ticks "
+                                     f"{bad[:10].tolist()}")
+        if not got["done"][done_tick - 1:].all():
+            raise AssertionError(f"{name}: the preview did not end")
+        sup = ref["support"][1:]
+        pinned = sup & (ref["feet_world"][1:] == ref["feet_world"][:-1]).all(-1)
+        feet = got["feet_world"]
+        if not np.array_equal(feet[1:][pinned], feet[:-1][pinned]):
+            raise AssertionError(f"{name}: a stance foot moved")
+        err = dict(
+            base=float(np.abs(got["base_position"] - ref["base_position"]).max()),
+            feet=float(np.abs(feet - ref["feet_world"]).max()),
+            quat=float(np.abs(got["base_quaternion"]
+                              - ref["base_quaternion"]).max()),
+            joints=float(np.abs(got["joint_positions"]
+                                - ref["joint_positions"]).max()))
+        worst = {k: max(worst[k], v) for k, v in err.items()}
+        per[name] = dict(ticks=ticks, done_tick=done_tick, s=wall,
+                         ms_per_tick=1e3 * wall / ticks,
+                         steps=sched.num_steps, **err)
+        log(f"preview {name}: " + json.dumps(per[name]))
+        if max(err["base"], err["feet"], err["quat"]) > PREVIEW_TOL:
+            raise AssertionError(f"{name}: preview off the JAX preview by "
+                                 f"more than {PREVIEW_TOL}: {err}")
+    kernel_launches = fk.launches
+    # device ops of one tick without a step entry (trot_test mid-swing)
+    # and of a base_auto entry (standup's first tick: the pose QP)
+    def ticks_of(name, n):
+        sched = compile_(name)
+        es = steps.init_exec_state(sim.feet_world, sim.robot.base.position,
+                                   sim.robot.base.quaternion)
+        state = (es, sim.feet_world, sim.robot.base.position,
+                 sim.robot.base.quaternion)
+        run = lambda st: pv.preview_step(model, sched, *st)[:4]  # noqa: E731
+        for _ in range(n):
+            state = run(state)
+        return lambda: run(state)
+
+    _, plain_ops, plain_busy, plain_wall = device_ops(ticks_of("trot_test", 5))
+    _, entry_ops, entry_busy, entry_wall = device_ops(ticks_of("standup", 0))
+    total_s = sum(p["s"] for p in per.values())
+    total_ticks = sum(p["ticks"] for p in per.values())
+    res = dict(scripts=len(per), ticks=total_ticks, wall_s=total_s,
+               ms_per_tick=1e3 * total_s / total_ticks,
+               ops_per_plain_tick=plain_ops, plain_tick_ms=1e3 * plain_wall,
+               plain_tick_busy=plain_busy / plain_wall,
+               ops_per_auto_entry_tick=entry_ops,
+               auto_entry_tick_ms=1e3 * entry_wall,
+               auto_entry_tick_busy=entry_busy / entry_wall,
+               max_err=worst, kernel_launches=kernel_launches)
+    log("preview of the 13 bundled scripts: " + json.dumps(res))
+    if kernel_launches:
+        raise AssertionError("the preview reached the QP kernel")
+    return res
+
+
+def check_scripted(standup_ticks: int, device) -> dict:
+    """Phase 12: the closed loop of scripted motion at B = 1: standup from
+    tick 0 through the registry and init_script_state, then the two JAX
+    golden windows from their committed ScriptState."""
+    from quadruped_locomotion_tpu_torch import convert
+    from quadruped_locomotion_tpu_torch.api.action_loader import default_registry
+    from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.planning import steps
+    from quadruped_locomotion_tpu_torch.rollout import script_loop as sl
+    from quadruped_locomotion_tpu_torch.types import RobotModel
+
+    golden = dict(np.load(SCRIPT_GOLDEN))
+    if not 40 <= standup_ticks <= len(golden["standup/tel/done"]):
+        raise ValueError("--script-ticks must lie in [40, "
+                         f"{len(golden['standup/tel/done'])}]")
+    model, params = RobotModel.simpledog(device), ControllerParams.defaults(device)
+    runs, res = {}, {}
+    fk.launches = 0
+    for name, ticks in (("standup", standup_ticks),
+                        ("trot_test", WINDOW_TICKS),
+                        ("change_to_spot", WINDOW_TICKS)):
+        if name == "standup":
+            # the golden's start: the stance with LF's hip abduction moved
+            # by a seed that the reference's roll instability grows from
+            ss0 = sl.init_script_state(
+                model, height=float(golden["standup/meta/height"]),
+                device=device)
+            q = ss0.sim.robot.q.clone()
+            q[0, 0] += float(golden["standup/meta/seed_lf_haa"])
+            ss0 = ss0.replace(sim=ss0.sim.replace(
+                robot=ss0.sim.robot.replace(q=q)))
+            sim = ss0.sim
+            sched = default_registry().compile(
+                name, sim.robot.base.position, sim.robot.base.quaternion,
+                sim.feet_world, device=device)
+        else:
+            get = lambda cls, p: convert.from_numpy(  # noqa: E731
+                cls, convert.unflatten(golden, f"{name}/{p}"), device)
+            ss0, sched = get(sl.ScriptState, "ss0/"), get(steps.StepSchedule,
+                                                          "sched/")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ssf, tel = sl.run_schedule(model, params, sched, ss0, ticks,
+                                   device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = (ssf, sched)
+        got = {k: v.cpu().numpy() for k, v in tel.items()}
+        ref = {k: golden[f"{name}/tel/{k}"][:ticks] for k in got}
+        z = got["base_position"][:, 2]
+        dpos = np.abs(got["base_position"] - ref["base_position"]).max(-1)
+        r = dict(ticks=ticks, wall_s=wall, s_per_tick=wall / ticks,
+                 finite=all(np.isfinite(v).all() for v in got.values()
+                            if v.dtype.kind == "f"),
+                 z_min=float(z.min()), z_final=float(z[-1]),
+                 max_dpos=float(dpos.max()), dpos_by_tick=dpos[::5].tolist(),
+                 kkt_max=float(got["qp_kkt"].max()),
+                 done=bool(got["done"][-1]))
+        res[name] = r
+        log(f"scripted {name}: " + json.dumps(r))
+        if not r["finite"]:
+            raise AssertionError(f"{name}: telemetry not finite")
+        for k in ("step_index", "support"):
+            if not np.array_equal(got[k], ref[k]):
+                raise AssertionError(f"{name}: {k} differs from JAX")
+        if not r["max_dpos"] <= SCRIPT_TOL:
+            raise AssertionError(f"{name}: base {r['max_dpos']} m off JAX "
+                                 f"(> {SCRIPT_TOL})")
+        # the JAX package's tests/test_actions.py bounds
+        if name == "standup":
+            feet_z = float(np.abs(got["feet_world"][-1, :, 2]).max())
+            if not (r["done"] and abs(r["z_final"] - 0.45) < 0.02
+                    and feet_z < 2e-3):
+                raise AssertionError(f"standup did not stand up: {r}")
+        elif not r["z_min"] > {"trot_test": 0.3, "change_to_spot": 0.15}[name]:
+            raise AssertionError(f"{name}: the base sank: {r}")
+    kernel_launches = fk.launches
+    # device ops of one tick of the trot window (no step entry)
+    ssf, sched = runs["trot_test"]
+    _, ops, busy, wall = device_ops(lambda: sl.planner_tick(
+        model, params, sched, ssf))
+    res.update(ops_per_tick=ops, profiled_tick_s=wall,
+               profiled_tick_busy=busy / wall, kernel_launches=kernel_launches)
+    log("scripted motion: " + json.dumps({k: v for k, v in res.items()
+                                          if not isinstance(v, dict)}))
+    if kernel_launches:
+        raise AssertionError("scripted motion reached the QP kernel")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=25,
@@ -871,10 +1117,13 @@ def main() -> int:
                     help="planner ticks of the articulated rollout")
     ap.add_argument("--latency-chunks", type=int, default=3,
                     help="timed 25-tick chunks per plant at B = 1")
-    ap.add_argument("--sweep-ticks", type=int, default=100,
+    ap.add_argument("--sweep-ticks", type=int, default=60,
                     help="planner ticks of the config-5 sweep")
-    ap.add_argument("--est-ticks", type=int, default=100,
+    ap.add_argument("--est-ticks", type=int, default=60,
                     help="planner ticks of the estimated loop (>= 51)")
+    ap.add_argument("--script-ticks", type=int, default=40,
+                    help="closed-loop ticks of standup from tick 0 "
+                         "(40-120: the JAX golden's length)")
     ap.add_argument("--dump", type=Path, default=None,
                     help="write the QP instances the gates look at (the "
                          "kernel's and plain version's Dx >= d violators, "
@@ -926,13 +1175,16 @@ def main() -> int:
     sw = timed("sweep", check_sweep, BATCH, args.sweep_ticks, device, dump)
     est = timed("estimated", check_estimated, EST_BATCH, args.est_ticks,
                 device)
+    pre = timed("preview", check_preview, device)
+    scr = timed("scripted", check_scripted, args.script_ticks, device)
     if dump is not None:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
         np.savez(args.dump, **dump)
 
     launches = (m["launches"] + m["launches_none"] + h["launches"]
                 + lf["launches"] + a["launches"] + lat["launches"]
-                + sw["launches"] + est["kernel_launches"])
+                + sw["launches"] + est["kernel_launches"]
+                + pre["kernel_launches"] + scr["kernel_launches"])
     log("phase wall seconds: " + json.dumps(phase_s)
         + f"; whole script {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{

@@ -5,8 +5,13 @@ heightfields, shared or per-scenario trot/pace gait parameters; the
 articulated, massless and controller-only plants) with the hand-written
 CUDA kernel of the force-distribution QP it runs every control substep,
 the QP headline and load-factor solves, the config-5 scenario sweep
-(``sweep.py``), and the EKF-estimated closed loop. The JAX package stays
-the reference; module names here mirror its modules.
+(``sweep.py``), the EKF-estimated closed loop, and scripted motion: YAML
+motion scripts compiled to step schedules (``api/``), the BaseAuto pose
+optimization and the step executor (``planning/``), its kinematic
+preview and its closed loop (``rollout/preview.py``,
+``rollout/script_loop.py``), and the console ``python -m
+quadruped_locomotion_tpu_torch``. The JAX package stays the reference;
+module names here mirror its modules.
 
 Entry points run on the GPU (``device=None`` means ``"cuda"``) and raise
 where CUDA is absent; pass ``device="cpu"`` to run the plain PyTorch

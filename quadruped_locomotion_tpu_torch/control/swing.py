@@ -1,7 +1,8 @@
 """Swing-leg computed-torque control (≙ ``quadruped_locomotion_tpu/control/
 swing.py``): τ = Jᵀ(Kp·e_pos + Kd·e_vel) + InverseDynamics(q, q̇, ½·q̈_des),
 with q̈_des from the planned foot acceleration through damped
-differential kinematics."""
+differential kinematics; and the joint-space PD / PID + gravity
+compensation of frozen and joint-mode legs."""
 
 from __future__ import annotations
 
@@ -60,3 +61,27 @@ def joint_pd_gravity_torques(
     fallback mode, PID gains 300/0.01/3)."""
     tau_g = gravity_torques(model, state.q, _gravity_in_base(state, q_des))
     return kp * (q_des - state.q) + kd * (qd_des - state.qd) + tau_g
+
+
+def joint_pid_gravity_torques(
+    model: RobotModel,
+    state: RobotState,
+    q_des: torch.Tensor,  # (...,4,3)
+    qd_des: torch.Tensor,  # (...,4,3)
+    integral: torch.Tensor,  # (...,4,3) accumulated ∫e dt, carried by the caller
+    dt: float,
+    kp: float = 300.0,
+    ki: float = 0.01,
+    kd: float = 3.0,
+    i_max: float = 10.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Joint-space PID + gravity compensation for joint-mode legs (the
+    reference's per-joint PID, gains 300/0.01/3). Returns (torques
+    (...,4,3), new integral (...,4,3)); the integral is clamped to
+    ±``i_max``/ki against windup."""
+    e = q_des - state.q
+    bound = i_max / max(ki, 1e-12)
+    integral2 = torch.clamp(integral + e * dt, -bound, bound)
+    tau_g = gravity_torques(model, state.q, _gravity_in_base(state, q_des))
+    tau = kp * e + ki * integral2 + kd * (qd_des - state.qd) + tau_g
+    return tau, integral2

@@ -5,8 +5,11 @@ field name, mirroring the JAX package's dataclasses and NamedTuples
 (``RobotModel``, ``ControllerParams`` = (vmc, cfd, swing), ``GaitParams``,
 ``LocomotionState`` = (sim, gait, fsm) with the swing-spline tables,
 ``SimState`` of either plant (the articulated one keeps its pinned feet's
-anchors in ``feet_world``), ``QpSolution``, ``Heightfield`` and
-``EstimatorState``). Batched objects keep the JAX package's vmapped
+anchors in ``feet_world``), ``QpSolution``, ``Heightfield``,
+``EstimatorState``, and scripted motion's ``StepSchedule``, ``ExecState``
+(its ``inf`` time before the first step included), ``FsmState``,
+``ScriptState`` and the preview's ``StateBatch``). Batched objects keep
+the JAX package's vmapped
 layout, a leading scenario axis on every leaf: one map per scenario in a
 ``Heightfield``, (B,) and (B,2) leaves in per-scenario ``GaitParams``.
 :func:`from_numpy` builds any of the port's objects on a device, e.g.

@@ -1,7 +1,12 @@
 """Swing-foot trajectories: knot profile, timing, Hermite fit (≙
-``quadruped_locomotion_tpu/gait/footstep.py``). This slice ports the
-triangle profile, the one the gait engine uses; the square, straight and
-trapezoid profiles come with the scripted-motion slice."""
+``quadruped_locomotion_tpu/gait/footstep.py``).
+
+The four knot profiles are triangle (the gait engine's), square,
+straight and trapezoid (scripted footsteps and end-effector targets).
+``profile`` is one profile code for every leading index, or a tensor of
+codes per leading index (e.g. per leg): then all four profiles are built
+and each index takes its own by gather, as the JAX package selects them.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +15,9 @@ import torch
 from .spline import MAX_KNOTS, HermiteSpline, fit
 
 PROFILE_TRIANGLE = 0
+PROFILE_SQUARE = 1
+PROFILE_STRAIGHT = 2
+PROFILE_TRAPEZOID = 3
 
 DEFAULT_PROFILE_HEIGHT = 0.08
 DEFAULT_AVERAGE_VELOCITY = 0.65
@@ -18,22 +26,77 @@ DEFAULT_TOUCHDOWN_SPEED = 0.05
 DEFAULT_MIN_DURATION = 0.3
 
 
+def _with_z(p, z):
+    return torch.cat([p[..., :2], z[..., None]], dim=-1)
+
+
 def _triangle_knots(start, target, height):
     knot2 = start + 0.5 * (target - start)
     apex = torch.maximum(start[..., 2], target[..., 2]) + height
-    knot2 = torch.cat([knot2[..., :2], apex[..., None]], dim=-1)
+    knot2 = _with_z(knot2, apex)
     return torch.stack([start, knot2, target, target, target], dim=-2), 3
 
 
-def compute_timing(values, num_knots: int, average_velocity, min_duration):
+def _square_knots(start, target, height):
+    basis = torch.maximum(start[..., 2], target[..., 2]) + height
+    k2 = _with_z(start, basis)
+    k3 = _with_z(target, basis)
+    return torch.stack([start, k2, k3, target, target], dim=-2), 4
+
+
+def _straight_knots(start, target, height):
+    return torch.stack([start, target, target, target, target], dim=-2), 2
+
+
+def _trapezoid_knots(start, target, height):
+    k2 = _with_z(start + 0.1 * (target - start), start[..., 2] + height)
+    k4 = _with_z(start + 0.9 * (target - start), target[..., 2] + height)
+    k3 = _with_z(k2 + 0.5 * (k4 - k2), k4[..., 2])
+    return torch.stack([start, k2, k3, k4, target], dim=-2), 5
+
+
+KNOTS = (_triangle_knots, _square_knots, _straight_knots, _trapezoid_knots)
+
+
+def fma_norm(v: torch.Tensor) -> torch.Tensor:
+    """‖v‖ over a last axis of 3, rounded as PyTorch's and XLA's CPU
+    norms round it (a fused multiply-add chain x², + y², + z², then the
+    square root), on any device; the chain is evaluated in float64 with
+    a float32 rounding per step. A swing stretched to the minimum
+    duration ends within an ulp of a planner tick, so this rounding
+    decides on which tick the window closes; CUDA's norm rounds
+    otherwise."""
+    x, y, z = v.double().unbind(-1)
+    s = (x * x).to(v.dtype).double()
+    s = (y * y + s).to(v.dtype).double()
+    return torch.sqrt((z * z + s).to(v.dtype))
+
+
+def _last(a, num_knots):
+    """``a[..., num_knots - 1]`` for an int or a per-index tensor."""
+    if isinstance(num_knots, int):
+        return a[..., num_knots - 1]
+    return torch.gather(a, -1, (num_knots.long() - 1)[..., None])[..., 0]
+
+
+def compute_timing(values, num_knots, average_velocity, min_duration):
     """Knot times from inter-knot distance / average velocity, stretched
-    to the minimum duration when too fast."""
-    deltas = torch.linalg.norm(values[..., 1:, :] - values[..., :-1, :], dim=-1)
+    to the minimum duration when too fast. ``num_knots`` and
+    ``average_velocity`` are numbers or tensors of the leading shape."""
+    deltas = fma_norm(values[..., 1:, :] - values[..., :-1, :])
     idx = torch.arange(MAX_KNOTS - 1, device=values.device)
-    deltas = torch.where(idx < num_knots - 1, deltas, torch.zeros_like(deltas))
-    times = torch.cat([torch.zeros_like(deltas[..., :1]),
-                       torch.cumsum(deltas / average_velocity, dim=-1)], dim=-1)
-    total = times[..., num_knots - 1]
+    live = (idx < num_knots - 1 if isinstance(num_knots, int)
+            else idx < (num_knots - 1)[..., None])
+    deltas = torch.where(live, deltas, torch.zeros_like(deltas))
+    if isinstance(average_velocity, torch.Tensor):
+        average_velocity = average_velocity[..., None]
+    # a running sum in knot order (a device's scan may associate otherwise)
+    dt = deltas / average_velocity
+    times = [torch.zeros_like(dt[..., 0])]
+    for k in range(MAX_KNOTS - 1):
+        times.append(times[-1] + dt[..., k])
+    times = torch.stack(times, dim=-1)
+    total = _last(times, num_knots)
     scale = torch.where(total < min_duration,
                         min_duration / torch.clamp(total, min=1e-9),
                         torch.ones_like(total))
@@ -44,27 +107,37 @@ def swing_trajectory(
     start: torch.Tensor,  # (...,3)
     target: torch.Tensor,  # (...,3)
     surface_normal: torch.Tensor | None = None,
-    profile: int = PROFILE_TRIANGLE,
-    profile_height: float = DEFAULT_PROFILE_HEIGHT,
-    average_velocity: float = DEFAULT_AVERAGE_VELOCITY,
+    profile: int | torch.Tensor = PROFILE_TRIANGLE,  # int or (...) codes
+    profile_height: float | torch.Tensor = DEFAULT_PROFILE_HEIGHT,  # or (...)
+    average_velocity: float | torch.Tensor = DEFAULT_AVERAGE_VELOCITY,  # or (...)
     liftoff_speed: float = DEFAULT_LIFTOFF_SPEED,
     touchdown_speed: float = DEFAULT_TOUCHDOWN_SPEED,
     min_duration: float = DEFAULT_MIN_DURATION,
 ) -> HermiteSpline:
     """One swing-foot spline per leading index."""
-    if profile != PROFILE_TRIANGLE:
-        raise NotImplementedError(
-            "only the triangle swing profile is ported so far")
     if surface_normal is None:
         surface_normal = start.new_tensor([0.0, 0.0, 1.0])
-    values, n = _triangle_knots(start, target, profile_height)
+    if isinstance(profile, torch.Tensor):
+        built = [k(start, target, profile_height) for k in KNOTS]
+        p = profile.long()
+        values = torch.gather(
+            torch.stack([v for v, _ in built]), 0,
+            p[None, ..., None, None].expand((1,) + built[0][0].shape))[0]
+        n = torch.tensor([k for _, k in built], device=start.device)[p]
+    else:
+        values, n = KNOTS[profile](start, target, profile_height)
     times = compute_timing(values, n, average_velocity, min_duration)
     # pad times beyond the real knots with the end time
     idx = torch.arange(MAX_KNOTS, device=start.device)
-    times = torch.where(idx < n, times, times[..., n - 1:n])
+    if isinstance(n, int):
+        times = torch.where(idx < n, times, times[..., n - 1:n])
+        n = torch.full(start.shape[:-1], n, dtype=torch.int32,
+                       device=start.device)
+    else:
+        times = torch.where(idx < n[..., None], times,
+                            _last(times, n)[..., None])
     lift_vel = start.new_tensor([0.0, 0.0, 1.0]) * liftoff_speed
     touch_vel = -touchdown_speed * surface_normal
     batch = start.shape[:-1]
     return fit(times, values, lift_vel.expand(batch + (3,)),
-               touch_vel.expand(batch + (3,)),
-               torch.full(batch, n, dtype=torch.int32, device=start.device))
+               touch_vel.expand(batch + (3,)), n.to(torch.int32))

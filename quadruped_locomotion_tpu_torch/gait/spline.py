@@ -38,6 +38,11 @@ class HermiteSpline(TensorStruct):
     def acceleration(self, t: torch.Tensor) -> torch.Tensor:
         return _eval(self, t, 2)
 
+    def derivatives(self, t: torch.Tensor, n: int = 3):
+        """(value, velocity, acceleration)[:n] at t, one segment lookup."""
+        seg = _segment(self, t)
+        return tuple(_basis(d, *seg) for d in range(n))
+
 
 def fit(times, values, start_velocity, end_velocity, num_knots) -> HermiteSpline:
     """Fit with given endpoint derivatives and Catmull-Rom interior
@@ -63,7 +68,9 @@ def fit(times, values, start_velocity, end_velocity, num_knots) -> HermiteSpline
                          num_knots=num_knots, duration=duration)
 
 
-def _eval(sp: HermiteSpline, t: torch.Tensor, deriv: int) -> torch.Tensor:
+def _segment(sp: HermiteSpline, t: torch.Tensor):
+    """The knot segment at t: (s, h, ok, p0, p1, m0, m1), shared by the
+    value and its derivatives."""
     last = (sp.num_knots.long() - 1)[..., None]
     t = torch.minimum(torch.maximum(t, sp.times[..., 0]),
                       _take(sp.times, last)[..., 0])
@@ -83,13 +90,14 @@ def _eval(sp: HermiteSpline, t: torch.Tensor, deriv: int) -> torch.Tensor:
     h = torch.where(ok, h_raw, torch.ones_like(h_raw))
     s = ((t - t0) / h)[..., None]
     hh = h[..., None]
-    okv = ok[..., None]
-
     p0 = _take(sp.values, seg)[..., 0, :]
     p1 = _take(sp.values, seg + 1)[..., 0, :]
     m0 = _take(sp.tangents, seg)[..., 0, :] * hh
     m1 = _take(sp.tangents, seg + 1)[..., 0, :] * hh
+    return s, hh, ok[..., None], p0, p1, m0, m1
 
+
+def _basis(deriv: int, s, hh, okv, p0, p1, m0, m1) -> torch.Tensor:
     if deriv == 0:
         h00 = 2 * s**3 - 3 * s**2 + 1
         h10 = s**3 - 2 * s**2 + s
@@ -110,3 +118,7 @@ def _eval(sp: HermiteSpline, t: torch.Tensor, deriv: int) -> torch.Tensor:
     h11 = 6 * s - 2
     val = (h00 * p0 + h10 * m0 + h01 * p1 + h11 * m1) / (hh * hh)
     return torch.where(okv, val, torch.zeros_like(val))
+
+
+def _eval(sp: HermiteSpline, t: torch.Tensor, deriv: int) -> torch.Tensor:
+    return _basis(deriv, *_segment(sp, t))

@@ -22,10 +22,19 @@ or ``tel/qp_kkt``. ``--path``:
   and bias zero), articulated plant, vmapped over B = 3 trot scenarios
   with seeded commands, 10 ticks, written to
   ``tests/data/torch_port_estimated_golden.npz``.
+* ``preview``: the kinematic preview (``preview_schedule``) of every
+  bundled motion script and the inline ones of
+  ``make_torch_port_references.py``, up to ten ticks past each one's end,
+  written to ``tests/data/torch_port_preview_golden.npz``.
+* ``script``: the closed loop of scripted motion over SCRIPT_WINDOWS
+  (standup from tick 0, trot_test and change_to_spot windows) with the
+  ``ScriptState`` at each window's start, written to
+  ``tests/data/torch_port_script_golden.npz``.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_golden.py \
-        [--path flat|sweep|estimated] [--plant massless|articulated] \
-        [--out PATH] [--batch B] [--ticks T] [--seed 0]
+        [--path flat|sweep|estimated|preview|script] \
+        [--plant massless|articulated] [--out PATH] [--batch B] \
+        [--ticks T] [--seed 0]
 
 Each run compiles its rollout on XLA:CPU: a few minutes (the
 articulated plant longer).
@@ -50,6 +59,10 @@ DEFAULTS = {
 }
 # --path sweep / estimated -> (default output, batch, ticks)
 PATH_DEFAULTS = {
+    "preview": (os.path.join(DATA, "torch_port_preview_golden.npz"), None,
+                None),
+    "script": (os.path.join(DATA, "torch_port_script_golden.npz"), None,
+               None),
     "sweep": (os.path.join(DATA, "torch_port_sweep_golden.npz"), 8, 20),
     "estimated": (os.path.join(DATA, "torch_port_estimated_golden.npz"),
                   3, 10),
@@ -211,9 +224,124 @@ def make_estimated_golden(batch: int = 3, ticks: int = 10,
     })
 
 
+PREVIEW_MARGIN = 10  # ticks kept past each script's done tick
+# Standup's base roll rate grows ~10x per tick from any asymmetry
+# (ROADMAP §3): from the exact stance, each float32 run seeds it with its
+# own rounding and two runs part by ~1e-3 m. Its window therefore starts
+# with LF's hip abduction moved by this many radians, a seed both runs
+# share: two XLA compilations then agree within 1.3e-6 m over 60 ticks.
+STANDUP_SEED = 1e-5
+# the closed-loop windows: script -> (stance height, start tick, ticks)
+SCRIPT_WINDOWS = {
+    # from the standing start (seeded, see STANDUP_SEED): the base rises
+    # 0.38 -> 0.45 m (35 ticks) and settles
+    "standup": (0.38, 0, 120),
+    # the first footstep pair's touchdown and the second pair's lift-off
+    # (the step switch at tick 30): the FSM's reflexes and the triangle
+    # footstep
+    "trot_test": (0.4, 24, 20),
+    # the RH fold: RH under joint-space PID control (ticks ~84-185 of the
+    # kinematic preview)
+    "change_to_spot": (0.4, 120, 20),
+}
+
+
+def make_preview_golden() -> dict:
+    """Every bundled motion script (and the inline ones of
+    ``make_torch_port_references.INLINE_SCRIPTS``) compiled against the
+    default 0.4 m stance and previewed by the JAX ``preview_schedule``
+    for ``4 s x steps`` of planner ticks; each script's StateBatch is kept
+    up to PREVIEW_MARGIN ticks past its first done tick
+    (``<name>/done_tick``: ticks until done, counted from 1)."""
+    import jax
+
+    import make_torch_port_references as refs
+    from quadruped_locomotion_tpu.rollout import preview as pv
+
+    model, sim = refs._stance()
+    out = {"meta/margin": np.asarray(PREVIEW_MARGIN),
+           "meta/height": np.asarray(refs.STANCE_HEIGHT)}
+    for name in refs.PREVIEW_SCRIPTS:
+        sched = refs.compile_script(name, sim)
+        ticks = sched.num_steps * 400
+        batch = jax.jit(lambda: pv.preview_schedule(
+            model, sched, height=refs.STANCE_HEIGHT, planner_ticks=ticks))()
+        done = np.asarray(batch.done)
+        if not done.any():
+            raise RuntimeError(f"{name}: the preview never ends")
+        done_tick = int(np.argmax(done)) + 1
+        keep = min(done_tick + PREVIEW_MARGIN, ticks)
+        for k, v in jax_to_numpy(batch).items():
+            out[f"{name}/{k}"] = v[:keep]
+        out[f"{name}/done_tick"] = np.asarray(done_tick)
+        print(f"{name}: done at tick {done_tick}", flush=True)
+    return out
+
+
+def make_script_golden() -> dict:
+    """The JAX closed-loop scripted motion (``script_loop.planner_tick``,
+    massless plant, generic QP) over the SCRIPT_WINDOWS: the
+    ``ScriptState`` at the window's start tick (``<name>/ss0/...``) and,
+    per tick of the window, ``run_schedule``'s telemetry plus the
+    executor's desired support and joint mode (``steps.advance`` on the
+    tick's starting state, as planner_tick calls it). Standup starts
+    from the stance with LF's hip abduction moved by STANDUP_SEED."""
+    import jax
+    import jax.numpy as jnp
+
+    import make_torch_port_references as refs
+    from quadruped_locomotion_tpu.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu.planning import steps
+    from quadruped_locomotion_tpu.rollout import script_loop as sl
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    model = RobotModel.simpledog()
+    params = ControllerParams.defaults()
+    out = {}
+    for name, (height, start, ticks) in SCRIPT_WINDOWS.items():
+        ss = sl.init_script_state(model, None, height=height)
+        sched = refs.compile_script(name, ss.sim)
+        if name == "standup":
+            q = ss.sim.robot.q.at[0, 0].add(STANDUP_SEED)
+            ss = ss.replace(sim=ss.sim.replace(robot=ss.sim.robot.replace(q=q)))
+            out[f"{name}/meta/seed_lf_haa"] = np.asarray(STANDUP_SEED)
+        tick = jax.jit(lambda ss: sl.planner_tick(model, params, sched, ss))
+        adv = jax.jit(lambda ss: steps.advance(
+            model, sched, ss.exec, ss.sim.feet_world,
+            ss.sim.robot.base.position, ss.sim.robot.base.quaternion,
+            0.01, q_now=ss.sim.robot.q)[1])
+        for _ in range(start):
+            ss, _ = tick(ss)
+        out.update(flatten(jax_to_numpy(ss), f"{name}/ss0/"))
+        out.update(flatten(jax_to_numpy(sched), f"{name}/sched/"))
+        tel = {k: [] for k in ("base_position", "base_quaternion",
+                               "feet_world", "joint_positions", "step_index",
+                               "done", "qp_kkt", "support", "joint_mode")}
+        for _ in range(ticks):
+            o = adv(ss)
+            ss, kkt = tick(ss)
+            for k, v in (("base_position", ss.sim.robot.base.position),
+                         ("base_quaternion", ss.sim.robot.base.quaternion),
+                         ("feet_world", ss.sim.feet_world),
+                         ("joint_positions", ss.sim.robot.q),
+                         ("step_index", ss.exec.step_index),
+                         ("done", ss.exec.done), ("qp_kkt", kkt),
+                         ("support", o.support),
+                         ("joint_mode", o.joint_mode)):
+                tel[k].append(np.asarray(v))
+        out.update({f"{name}/tel/{k}": np.stack(v) for k, v in tel.items()})
+        out.update({f"{name}/meta/height": np.asarray(height),
+                    f"{name}/meta/start": np.asarray(start),
+                    f"{name}/meta/ticks": np.asarray(ticks)})
+        print(f"{name}: ticks {start}-{start + ticks}, final z "
+              f"{float(ss.sim.robot.base.position[2]):.4f}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("flat", "sweep", "estimated"),
+    ap.add_argument("--path", choices=("flat", "sweep", "estimated",
+                                       "preview", "script"),
                     default="flat")
     ap.add_argument("--plant", choices=sorted(DEFAULTS), default="massless",
                     help="plant of --path flat")
@@ -223,6 +351,16 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    if args.path in ("preview", "script"):
+        out = args.out or PATH_DEFAULTS[args.path][0]
+        golden = (make_preview_golden() if args.path == "preview"
+                  else make_script_golden())
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        np.savez_compressed(out, **golden)
+        print(f"wrote {out}: {len(golden)} arrays, "
+              f"{os.path.getsize(out)} bytes")
+        return
     if args.path == "flat":
         out, batch, ticks = DEFAULTS[args.plant]
         make = lambda b, t, s: make_golden(b, t, s, plant=args.plant)  # noqa: E731

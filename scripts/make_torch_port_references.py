@@ -49,8 +49,27 @@ inputs and JAX outputs of ``tests/test_torch_{terrain,sweep,estimated}.py``:
 * ``ekf/``: ``state_estimator.predict``, ``update`` and
   ``synthesize_imu`` on seeded states.
 
+The slice-5 file (``tests/data/torch_port_slice5_refs.npz``) holds the
+inputs and JAX outputs of ``tests/test_torch_{planning,actions}.py``:
+
+* ``footstep/``: ``swing_trajectory`` on seeded legs of all four
+  profiles (per-leg heights and velocities, steps in place included)
+  and its evaluations at seeded times;
+* ``pid/``: ``joint_pid_gravity_torques`` on seeded states (an integral
+  at its windup clamp included);
+* ``support/``: ``support_halfspaces`` for every support set of four
+  legs on two stances, with ``point_inside`` / ``violation`` at seeded
+  points;
+* ``pose/``: the cascade's stages and ``optimize_pose`` on a QP-pass, an
+  SQP and an executor-shaped case, and ``jax.vmap`` of it over two;
+* ``schedule/``: ``load_action`` of every bundled motion script and
+  the INLINE_SCRIPTS against the default stance;
+* ``advance/``: ``steps.advance`` on the previews' executor states
+  around every step switch and the end of the schedule (a pause tick
+  and a cut schedule too).
+
     JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
-        [--file slice2|fd_qp|slice4|all]
+        [--file slice2|fd_qp|slice4|slice5|all]
 
 Takes about two minutes per file on a CPU, most of it XLA compilation and
 the eager kernel trace. The tests recompute each section live under
@@ -71,6 +90,7 @@ DATA = os.path.join(ROOT, "tests", "data")
 DEFAULT_OUT = os.path.join(DATA, "torch_port_slice2_refs.npz")
 FD_QP_OUT = os.path.join(DATA, "torch_port_fd_qp_refs.npz")
 SLICE4_OUT = os.path.join(DATA, "torch_port_slice4_refs.npz")
+SLICE5_OUT = os.path.join(DATA, "torch_port_slice5_refs.npz")
 CHIP_QPS = os.path.join(DATA, "torch_port_chip_qps.npz")
 
 TILE = 1024  # one (8, 128) tile of the JAX kernel trace
@@ -94,12 +114,15 @@ FD_ENSEMBLE = 64
 
 
 def _tree(obj):
-    """JAX dataclass / NamedTuple tree -> nested dict of numpy arrays."""
+    """JAX dataclass / NamedTuple / dict tree -> nested dict of numpy
+    arrays."""
     if dataclasses.is_dataclass(obj):
         return {f.name: _tree(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return {k: _tree(v) for k, v in obj._asdict().items()}
+    if isinstance(obj, dict):
+        return {k: _tree(v) for k, v in obj.items()}
     return np.asarray(obj)
 
 
@@ -708,15 +731,439 @@ def ekf_references() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 5: scripted motion (footstep profiles, the joint PID, the support
+# polygon, the BaseAuto pose cascade, YAML -> StepSchedule, the executor)
+# ---------------------------------------------------------------------------
+
+SCRIPTS_DIR = os.path.join(ROOT, "quadruped_locomotion_tpu", "api",
+                           "motion_scripts")
+SCRIPT_NAMES = tuple(sorted(os.path.splitext(f)[0]
+                            for f in os.listdir(SCRIPTS_DIR)
+                            if f.endswith(".yaml")))
+STANCE_HEIGHT = 0.4  # preview_schedule's default stance
+FOOT_SHAPE = (6, 4)  # footstep legs: rows of the four profiles
+PID_BATCH = 5
+PID_DT = 0.0025
+SUPPORT_POINTS = 8
+# inline scripts for what no bundled script uses: tests/test_actions.py's
+# base_trajectory and end_effector_trajectory, and one with the square and
+# trapezoid profiles and a custom_command hold
+INLINE_SCRIPTS = {
+    "inline_base_trajectory": """
+adapt_coordinates:
+  - transform:
+      source_frame: base_link
+steps:
+  - step:
+      - base_trajectory:
+          trajectory:
+            knots:
+              - {time: 1.2, position: [0.0, 0.0, -0.04], orientation: [0.0, 0.0, 0.15]}
+              - {time: 2.4, position: [0.0, 0.0, 0.0], orientation: [0.0, 0.0, 0.0]}
+""",
+    "inline_ee_trajectory": """
+adapt_coordinates:
+  - transform:
+      source_frame: foot_print
+steps:
+  - step:
+      - base_auto:
+          height: 0.4
+  - step:
+      - base_auto:
+          height: 0.4
+      - leg_mode:
+          name: LF_LEG
+          support_leg: true
+          ignore_for_pose_adaptation: true
+          duration: 0.1
+  - step:
+      - end_effector_trajectory:
+          name: LF_LEG
+          ignore_contact: true
+          ignore_for_pose_adaptation: true
+          trajectory:
+            knots:
+              - {time: 0.8, position: [0.40, 0.25, 0.15]}
+              - {time: 1.6, position: [0.50, 0.25, 0.10]}
+""",
+    "inline_profiles": """
+adapt_coordinates:
+  - transform:
+      source_frame: foot_print
+steps:
+  - step:
+      - base_auto: {height: 0.4, support_margin: 0.0}
+      - footstep:
+          name: LF_LEG
+          profile_type: square
+          profile_height: 0.06
+          average_velocity: 0.4
+          target: {position: [0.46, 0.175, 0.0]}
+  - step:
+      - base_target:
+          ignore_timing_of_leg_motion: true
+          target: {position: [0.0, 0.0, 0.38], orientation: [0.0, 0.0, 0.0, 1.0]}
+      - footstep:
+          name: RH_LEG
+          profile_type: trapezoid
+          profile_height: 0.07
+          average_velocity: 0.5
+          target: {position: [-0.36, -0.175, 0.0]}
+  - step:
+      - custom_command: {duration: 0.4, command: hold}
+""",
+}
+PREVIEW_SCRIPTS = SCRIPT_NAMES + tuple(INLINE_SCRIPTS)
+# scripts whose executor inputs and outputs are recorded around their step
+# switches and the end of the schedule
+ADVANCE_SCRIPTS = ("trot_test", "change_to_spot", "end_effectors_target_demo",
+                   "inline_base_trajectory", "inline_ee_trajectory",
+                   "inline_profiles")
+ADVANCE_AFTER_END = 5  # calls recorded after the schedule's end
+
+
+def script_source(name: str) -> str:
+    """A bundled script's path or an inline script's text."""
+    if name in INLINE_SCRIPTS:
+        return INLINE_SCRIPTS[name]
+    return os.path.join(SCRIPTS_DIR, name + ".yaml")
+
+
+def footstep_inputs() -> dict:
+    """Seeded swing starts and targets on FOOT_SHAPE legs, each row of
+    four legs taking the four profiles; the last row steps in place
+    (zero path length: the minimum-duration stretch of a zero total)."""
+    rng = np.random.default_rng(21)
+    start = rng.uniform(-0.5, 0.5, FOOT_SHAPE + (3,))
+    start[..., 2] = rng.uniform(-0.05, 0.05, FOOT_SHAPE)
+    target = start + rng.uniform(-0.25, 0.25, FOOT_SHAPE + (3,))
+    target[..., 2] = rng.uniform(-0.05, 0.05, FOOT_SHAPE)
+    target[-1] = start[-1]
+    return {"start": start.astype(np.float32),
+            "target": target.astype(np.float32),
+            "profile": (np.arange(np.prod(FOOT_SHAPE)).reshape(FOOT_SHAPE)
+                        % 4).astype(np.int32),
+            "height": rng.uniform(0.03, 0.15, FOOT_SHAPE).astype(np.float32),
+            "avg_velocity": rng.uniform(0.1, 1.2, FOOT_SHAPE).astype(np.float32),
+            "t": rng.uniform(-0.1, 1.5, FOOT_SHAPE).astype(np.float32)}
+
+
+def pid_inputs() -> dict:
+    """PID_BATCH seeded robot states and joint targets; the last
+    instance's integral sits at the windup clamp (±1000 for ki = 0.01)."""
+    rng = np.random.default_rng(22)
+    quat = rng.normal(size=(PID_BATCH, 4))
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    q = rng.uniform(-1.0, 1.0, (PID_BATCH, 4, 3))
+    integral = rng.normal(0, 0.01, (PID_BATCH, 4, 3))
+    integral[-1] = np.sign(rng.normal(size=(4, 3))) * 999.9999
+    return {k: v.astype(np.float32) for k, v in {
+        "quaternion": quat, "q": q, "qd": rng.normal(0, 1.0, q.shape),
+        "q_des": q + rng.normal(0, 0.2, q.shape),
+        "qd_des": rng.normal(0, 0.5, q.shape), "integral": integral}.items()}
+
+
+def support_inputs() -> dict:
+    """Every support set of four legs over the stance feet and over feet
+    moved by up to 8 cm, margins 0 and 0.04 alternately, and seeded query
+    points."""
+    rng = np.random.default_rng(23)
+    hips = np.array([[0.4, 0.175], [0.4, -0.175], [-0.4, -0.175],
+                     [-0.4, 0.175]])
+    feet = np.stack([hips, hips + rng.uniform(-0.08, 0.08, (4, 2))])
+    sets = np.array([[(k >> leg) & 1 for leg in range(4)] for k in range(16)],
+                    bool)
+    n = 2 * len(sets)
+    return {"feet": np.repeat(feet, len(sets), 0).astype(np.float32),
+            "support": np.tile(sets, (2, 1)),
+            "margin": np.where(np.arange(n) % 2 == 0, 0.0, 0.04
+                               ).astype(np.float32),
+            "points": rng.uniform(-0.6, 0.6, (n, SUPPORT_POINTS, 2)
+                                  ).astype(np.float32)}
+
+
+def stance_feet(dx=0.0, dy=0.0) -> np.ndarray:
+    """tests/test_pose_optimization.py's symmetric_feet: the hips' xy on
+    the ground, shifted by (dx, dy)."""
+    feet = np.array([[0.4, 0.175, 0.0], [0.4, -0.175, 0.0],
+                     [-0.4, -0.175, 0.0], [-0.4, 0.175, 0.0]])
+    feet[:, 0] += dx
+    feet[:, 1] += dy
+    return feet.astype(np.float32)
+
+
+def pose_cases() -> dict:
+    """optimize_pose inputs: ``qp`` (the QP pose passes the check),
+    ``sqp`` (a 0.55 m stance over-extends the limbs: the SQP runs), both
+    with the default polygon and limb sets, and ``steps``:
+    change_to_spot's RH fold step as ``steps._enter_step`` passes it (the
+    polygon of the three legs that keep support, margin 0.04, the limb
+    sets of both stances)."""
+    feet = stance_feet()
+    keep = np.array([True, True, False, True])
+    return {
+        "qp": {"feet": stance_feet(0.05, 0.02), "support": np.ones(4, bool),
+               "height": np.float32(0.4), "margin": np.float32(0.0)},
+        "sqp": {"feet": feet, "support": np.ones(4, bool),
+                "height": np.float32(0.55), "margin": np.float32(0.0)},
+        "steps": {"feet": feet, "support": np.ones(4, bool),
+                  "height": np.float32(0.25), "margin": np.float32(0.04),
+                  "polygon_feet": feet, "polygon_support": keep,
+                  "limb_feet": np.concatenate([feet, feet]),
+                  "limb_support": np.ones(8, bool)},
+    }
+
+
+def footstep_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.gait.footstep import swing_trajectory
+
+    inp = footstep_inputs()
+    flat = {k: jnp.asarray(v.reshape((-1,) + v.shape[2:]))
+            for k, v in inp.items()}
+    sp = jax.vmap(lambda s, t, p, h, v: swing_trajectory(
+        s, t, profile=p, profile_height=h, average_velocity=v))(
+        flat["start"], flat["target"], flat["profile"], flat["height"],
+        flat["avg_velocity"])
+    ev = {k: jax.vmap(lambda s, t, f=k: getattr(s, f)(t))(sp, flat["t"])
+          for k in ("evaluate", "velocity", "acceleration")}
+    out = {f"in/{k}": v for k, v in inp.items()}
+    out.update({f"spline/{k}": np.asarray(v).reshape(FOOT_SHAPE + v.shape[1:])
+                for k, v in _tree(sp).items()})
+    out.update({f"eval/{k}": np.asarray(v).reshape(FOOT_SHAPE + v.shape[1:])
+                for k, v in ev.items()})
+    return out
+
+
+def pid_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.control.swing import joint_pid_gravity_torques
+    from quadruped_locomotion_tpu.types import RobotModel, RobotState
+
+    inp = pid_inputs()
+    model = RobotModel.simpledog()
+
+    def one(quat, q, qd, q_des, qd_des, integral):
+        neutral = RobotState.neutral()
+        st = neutral.replace(base=neutral.base.replace(quaternion=quat),
+                             q=q, qd=qd)
+        return joint_pid_gravity_torques(model, st, q_des, qd_des, integral,
+                                         PID_DT)
+
+    tau, integral = jax.vmap(one)(*(jnp.asarray(inp[k]) for k in (
+        "quaternion", "q", "qd", "q_des", "qd_des", "integral")))
+    out = {f"in/{k}": v for k, v in inp.items()}
+    out.update({"tau": tau, "integral": integral})
+    return out
+
+
+def support_references() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.terrain import support_polygon as sp
+
+    inp = support_inputs()
+    normals, offsets = jax.vmap(sp.support_halfspaces)(
+        jnp.asarray(inp["feet"]), jnp.asarray(inp["support"]),
+        jnp.asarray(inp["margin"]))
+    pts = jnp.asarray(inp["points"])
+    per_point = lambda f: jax.vmap(lambda n, o, p: jax.vmap(  # noqa: E731
+        lambda x: f(n, o, x))(p))(normals, offsets, pts)
+    out = {f"in/{k}": v for k, v in inp.items()}
+    out.update({"normals": normals, "offsets": offsets,
+                "inside": per_point(sp.point_inside),
+                "inside_tol": per_point(lambda n, o, x: sp.point_inside(
+                    n, o, x, tol=1e-3)),
+                "violation": per_point(sp.violation)})
+    return out
+
+
+def pose_references() -> dict:
+    """Per case: the geometric pose, the QP pose and its check, the final
+    pose and status of optimize_pose; ``batch/``: jax.vmap of
+    optimize_pose over the ``qp`` and ``sqp`` cases (both branches run,
+    selected per instance)."""
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.planning import pose_optimization as po
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    model = RobotModel.simpledog()
+    out = {}
+    for name, case in pose_cases().items():
+        c = {k: jnp.asarray(v) for k, v in case.items()}
+        kw = {k: c[k] for k in ("polygon_feet", "polygon_support",
+                                "limb_feet", "limb_support") if k in c}
+        nominal = po.default_nominal_stance(model, c["height"])
+        geo = po.geometric_pose(c["feet"], c["support"], nominal)
+        pq = po.pose_qp(model, geo, c["feet"], c["support"], nominal,
+                        margin=c["margin"],
+                        polygon_feet=kw.get("polygon_feet"),
+                        polygon_support=kw.get("polygon_support"))
+        ok = po.check_pose(model, pq, c["feet"], c["support"], **kw)
+        pose, status = jax.jit(lambda c, kw: po.optimize_pose(
+            model, c["feet"], c["support"], height=c["height"],
+            margin=c["margin"], return_status=True, **kw))(c, kw)
+        out.update({f"{name}/in/{k}": np.asarray(v) for k, v in case.items()})
+        out.update({f"{name}/geometric/{k}": v for k, v in _tree(geo).items()})
+        out.update({f"{name}/qp/{k}": v for k, v in _tree(pq).items()})
+        out.update({f"{name}/qp_ok": ok, f"{name}/status": status})
+        out.update({f"{name}/pose/{k}": v for k, v in _tree(pose).items()})
+    cases = pose_cases()
+    stack = lambda k: jnp.asarray(np.stack(  # noqa: E731
+        [cases["qp"][k], cases["sqp"][k]]))
+    poses, status = jax.jit(jax.vmap(lambda f, s, h: po.optimize_pose(
+        model, f, s, height=h, return_status=True)))(
+        stack("feet"), stack("support"), stack("height"))
+    out.update({f"batch/pose/{k}": v for k, v in _tree(poses).items()})
+    out["batch/status"] = status
+    return out
+
+
+def _stance(height=STANCE_HEIGHT):
+    from quadruped_locomotion_tpu.rollout import simulator as simlib
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    model = RobotModel.simpledog()
+    return model, simlib.default_stance_state(model, height=height)
+
+
+def compile_script(name: str, sim):
+    from quadruped_locomotion_tpu.api.actions import load_action
+
+    return load_action(script_source(name), sim.robot.base.position,
+                       sim.robot.base.quaternion, sim.feet_world)
+
+
+def schedule_references() -> dict:
+    """Every bundled script (and the inline ones) through the JAX
+    load_action against the default stance."""
+    _, sim = _stance()
+    out = {"stance/base_position": sim.robot.base.position,
+           "stance/base_quaternion": sim.robot.base.quaternion,
+           "stance/feet_world": sim.feet_world}
+    for name in PREVIEW_SCRIPTS:
+        out.update({f"{name}/{k}": v for k, v in
+                    _tree(compile_script(name, sim)).items()})
+    return out
+
+
+def preview_ticks(model, sched, sim, ticks: int):
+    """The JAX batch_preview's tick, run one call at a time: yields
+    (inputs of steps.advance, its ExecState and outputs) per tick, the
+    kinematic plant's update done as batch_preview does it."""
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.model.kinematics import (
+        forward_kinematics, inverse_kinematics,
+    )
+    from quadruped_locomotion_tpu.planning import steps
+    from quadruped_locomotion_tpu.utils.rotations import (
+        quat_inv_rotate, quat_normalize, quat_rotate,
+    )
+
+    adv = jax.jit(lambda es, f, p, q, dt, qn, act: steps.advance(
+        model, sched, es, f, p, q, dt, q_now=qn, active_steps=act))
+    feet, bpos, bquat = (sim.feet_world, sim.robot.base.position,
+                         sim.robot.base.quaternion)
+    es = steps.init_exec_state(feet, bpos, bquat)
+    q_now = sim.robot.q
+    for _ in range(ticks):
+        inp = dict(es=es, feet=feet, bpos=bpos, bquat=bquat, q_now=q_now)
+        es2, out = adv(es, feet, bpos, bquat, 0.01, q_now, sched.num_steps)
+        yield inp, es2, out
+        feet2 = jnp.where(out.support[:, None], feet, out.foot_pos)
+        bpos, bquat = out.base.position, quat_normalize(out.base.quaternion)
+        q4 = jnp.broadcast_to(bquat, (4, 4))
+        q = inverse_kinematics(model, quat_inv_rotate(q4, feet2 - bpos))
+        q = jnp.where(out.joint_mode[:, None], out.q_des, q)
+        fk = bpos + quat_rotate(q4, forward_kinematics(model, q))
+        feet = jnp.where(out.joint_mode[:, None], fk, feet2)
+        es, q_now = es2, q
+
+
+def advance_references() -> dict:
+    """steps.advance on the executor states of ADVANCE_SCRIPTS' previews
+    (q_now: the previous tick's joints): at call 0 (the first entry), at
+    every step switch and the call before it, mid-step, at the call that
+    ends the schedule and five calls later; ``<name>/calls`` lists them
+    and every recorded field stacks them on its leading axis. At the
+    first switch of trot_test also ``trot_test/extra/``: a pause tick
+    (dt = 0) and a schedule cut to one live step (active_steps = 1, so
+    the switch becomes the end)."""
+    import jax
+
+    from quadruped_locomotion_tpu.planning import steps
+
+    def record(rows):
+        trees = [_flatten(_tree({"in": i, "es": e, "out": o}))
+                 for i, e, o in rows]
+        return {k: np.stack([t[k] for t in trees]) for k in trees[0]}
+
+    model, sim = _stance()
+    out = {}
+    for name in ADVANCE_SCRIPTS:
+        sched = compile_script(name, sim)
+        recs = []
+        for rec in preview_ticks(model, sched, sim, sched.num_steps * 400):
+            recs.append(rec)
+            if (len(recs) > ADVANCE_AFTER_END
+                    and bool(recs[-1 - ADVANCE_AFTER_END][1].done)):
+                break
+        ticks = len(recs)
+        idx = np.array([int(r[1].step_index) for r in recs])
+        done = np.array([bool(r[1].done) for r in recs])
+        end = int(np.argmax(done))
+        switches = [n for n in range(1, end) if idx[n] != idx[n - 1]]
+        calls = {0, end - 1, end, min(end + ADVANCE_AFTER_END, ticks - 1)}
+        for j, n in enumerate(switches):
+            calls.update({n - 1, n, (n + (switches + [end])[j + 1]) // 2})
+        calls = sorted(calls)
+        out[f"{name}/calls"] = np.array(calls)
+        out.update({f"{name}/{k}": v for k, v in
+                    record([recs[n] for n in calls]).items()})
+        if name == "trot_test":
+            inp = recs[switches[0] if switches else end][0]
+            rows, dts, acts = [], [], []
+            for dt, act in ((0.0, sched.num_steps), (0.01, 1)):
+                es2, o = jax.jit(lambda es, f, p, q, qn, dt=dt, act=act:
+                                 steps.advance(model, sched, es, f, p, q, dt,
+                                               q_now=qn, active_steps=act))(
+                    inp["es"], inp["feet"], inp["bpos"], inp["bquat"],
+                    inp["q_now"])
+                rows.append((inp, es2, o))
+                dts.append(dt)
+                acts.append(act)
+            out.update({f"{name}/extra/{k}": v
+                        for k, v in record(rows).items()})
+            out[f"{name}/extra/dt"] = np.array(dts, np.float32)
+            out[f"{name}/extra/active_steps"] = np.array(acts, np.int32)
+    return out
+
+
 SECTIONS = {"qp": qp_references, "headline": headline_references,
             "articulated": articulated_references,
             "fd_qp": fd_qp_references, "terrain": terrain_references,
             "gait_b6": gait_b6_references, "gait_b4": gait_b4_references,
-            "sweep": sweep_references, "ekf": ekf_references}
+            "sweep": sweep_references, "ekf": ekf_references,
+            "footstep": footstep_references, "pid": pid_references,
+            "support": support_references, "pose": pose_references,
+            "schedule": schedule_references, "advance": advance_references}
 FILES = {"slice2": (DEFAULT_OUT, ("qp", "headline", "articulated")),
          "fd_qp": (FD_QP_OUT, ("fd_qp",)),
          "slice4": (SLICE4_OUT, ("terrain", "gait_b6", "gait_b4", "sweep",
-                                 "ekf"))}
+                                 "ekf")),
+         "slice5": (SLICE5_OUT, ("footstep", "pid", "support", "pose",
+                                 "schedule", "advance"))}
 
 
 def make_references(sections) -> dict:
