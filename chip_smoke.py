@@ -59,8 +59,7 @@ Phases, each of which raises (exit code 1) when a gate fails:
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
-   planner ticks (default 60, cut from 100 to make room for phases 11
-   and 12) after a one-tick warm-up, with the
+   planner ticks (default 100) after a one-tick warm-up, with the
    worst-QP and foothold taps inside the timed window. Gates: exactly 4
    kernel launches per tick (the warm-up's included), finite telemetry,
    upright fraction (base over the local ground > 0.25 m) >= 0.9
@@ -71,11 +70,10 @@ Phases, each of which raises (exit code 1) when a gate fails:
    the KKT tail and the share of scenarios whose foothold search picked a
    cell other than the nominal foothold's own.
 10. The EKF-estimated closed loop (``rollout_estimated``) at B = 1024 for
-   ``--est-ticks`` ticks (default 60, cut from 100 to make room for
-   phases 11 and 12), trot at 0.2 m/s, realistic
+   ``--est-ticks`` ticks (default 100), trot at 0.2 m/s, realistic
    sensors from a seeded generator on the card. Gates (the bounds of
    tests/test_estimated_loop.py): finite telemetry, base height in
-   (0.3, 0.5) m throughout, median velocity error from tick 50 on
+   (0.3, 0.5) m throughout, median velocity error over ticks 50-100
    < 0.12 m/s, every scenario's final position error < 0.25 m, and no
    kernel launch (its QP is the generic IPM, as in the JAX package).
 11. The kinematic preview of the 13 bundled motion scripts, each
@@ -1117,9 +1115,9 @@ def main() -> int:
                     help="planner ticks of the articulated rollout")
     ap.add_argument("--latency-chunks", type=int, default=3,
                     help="timed 25-tick chunks per plant at B = 1")
-    ap.add_argument("--sweep-ticks", type=int, default=60,
+    ap.add_argument("--sweep-ticks", type=int, default=100,
                     help="planner ticks of the config-5 sweep")
-    ap.add_argument("--est-ticks", type=int, default=60,
+    ap.add_argument("--est-ticks", type=int, default=100,
                     help="planner ticks of the estimated loop (>= 51)")
     ap.add_argument("--script-ticks", type=int, default=40,
                     help="closed-loop ticks of standup from tick 0 "

@@ -88,28 +88,27 @@ def cmd_preview(args) -> int:
     return 0 if done else 1
 
 
-def _run_schedule(model, sim, sched, ticks, device, qp_iters=15):
-    import torch
-
-    from ..control.contact_fsm import init_fsm_state
+def _run_schedule(model, ss0, sched, ticks, device, qp_iters=15):
     from ..control.locomotion import ControllerParams
-    from ..planning import steps as steps_mod
     from ..rollout import script_loop as sl
 
-    es = steps_mod.init_exec_state(sim.feet_world, sim.robot.base.position,
-                                   sim.robot.base.quaternion)
-    ss0 = sl.ScriptState(sim=sim, exec=es,
-                         fsm=init_fsm_state((), device, sim.feet_world.dtype),
-                         joint_i=torch.zeros_like(sim.feet_world))
     return sl.run_schedule(model, ControllerParams.defaults(device), sched,
                            ss0, ticks, qp_iters=qp_iters, device=device)
 
 
+def _model_and_script_state(height, device):
+    from ..rollout import script_loop as sl
+    from ..types import RobotModel
+
+    model = RobotModel.simpledog(device)
+    return model, sl.init_script_state(model, height=height, device=device)
+
+
 def cmd_run(args) -> int:
-    model, sim = _model_and_state(args.height, args.device)
-    sched = _compile(_registry(args), args.action, sim, args.device)
+    model, ss0 = _model_and_script_state(args.height, args.device)
+    sched = _compile(_registry(args), args.action, ss0.sim, args.device)
     ticks = args.ticks or int(sched.num_steps * 4.0 / 0.01)
-    ssf, tel = _run_schedule(model, sim, sched, ticks, args.device)
+    ssf, tel = _run_schedule(model, ss0, sched, ticks, args.device)
     done = bool(tel["done"][-1])
     print(json.dumps({
         "action": args.action, "ticks": ticks, "completed": done,
@@ -120,15 +119,17 @@ def cmd_run(args) -> int:
 
 
 def cmd_run_collection(args) -> int:
+    from ..rollout import script_loop as sl
+
     reg = _registry(args)
-    model, sim = _model_and_state(args.height, args.device)
+    model, ss = _model_and_script_state(args.height, args.device)
     for aid in reg.collections[args.collection].action_ids:
-        sched = _compile(reg, aid, sim, args.device)
+        sched = _compile(reg, aid, ss.sim, args.device)
         ticks = int(sched.num_steps * 4.0 / 0.01)
-        ssf, tel = _run_schedule(model, sim, sched, ticks, args.device)
-        sim = ssf.sim
+        ssf, tel = _run_schedule(model, ss, sched, ticks, args.device)
+        ss = sl.init_script_state(model, sim=ssf.sim, device=args.device)
         print(f"action {aid}: done={bool(tel['done'][-1])} "
-              f"base={sim.robot.base.position.cpu().numpy().round(3).tolist()}",
+              f"base={ss.sim.robot.base.position.cpu().numpy().round(3).tolist()}",
               file=sys.stderr)
     print(json.dumps({"collection": args.collection, "completed": True}))
     return 0

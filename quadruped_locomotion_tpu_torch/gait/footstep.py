@@ -4,8 +4,8 @@
 The four knot profiles are triangle (the gait engine's), square,
 straight and trapezoid (scripted footsteps and end-effector targets).
 ``profile`` is one profile code for every leading index, or a tensor of
-codes per leading index (e.g. per leg): then all four profiles are built
-and each index takes its own by gather, as the JAX package selects them.
+codes per leading index (e.g. per leg); all four profiles are built and
+each index takes its own by gather, as the JAX package selects them.
 """
 
 from __future__ import annotations
@@ -73,21 +73,18 @@ def fma_norm(v: torch.Tensor) -> torch.Tensor:
 
 
 def _last(a, num_knots):
-    """``a[..., num_knots - 1]`` for an int or a per-index tensor."""
-    if isinstance(num_knots, int):
-        return a[..., num_knots - 1]
+    """``a[..., num_knots - 1]`` for per-index knot counts."""
     return torch.gather(a, -1, (num_knots.long() - 1)[..., None])[..., 0]
 
 
 def compute_timing(values, num_knots, average_velocity, min_duration):
     """Knot times from inter-knot distance / average velocity, stretched
-    to the minimum duration when too fast. ``num_knots`` and
-    ``average_velocity`` are numbers or tensors of the leading shape."""
+    to the minimum duration when too fast. ``num_knots`` is a tensor of
+    the leading shape, ``average_velocity`` a number or one."""
     deltas = fma_norm(values[..., 1:, :] - values[..., :-1, :])
     idx = torch.arange(MAX_KNOTS - 1, device=values.device)
-    live = (idx < num_knots - 1 if isinstance(num_knots, int)
-            else idx < (num_knots - 1)[..., None])
-    deltas = torch.where(live, deltas, torch.zeros_like(deltas))
+    deltas = torch.where(idx < (num_knots - 1)[..., None], deltas,
+                         torch.zeros_like(deltas))
     if isinstance(average_velocity, torch.Tensor):
         average_velocity = average_velocity[..., None]
     # a running sum in knot order (a device's scan may associate otherwise)
@@ -117,27 +114,21 @@ def swing_trajectory(
     """One swing-foot spline per leading index."""
     if surface_normal is None:
         surface_normal = start.new_tensor([0.0, 0.0, 1.0])
-    if isinstance(profile, torch.Tensor):
-        built = [k(start, target, profile_height) for k in KNOTS]
-        p = profile.long()
-        values = torch.gather(
-            torch.stack([v for v, _ in built]), 0,
-            p[None, ..., None, None].expand((1,) + built[0][0].shape))[0]
-        n = torch.tensor([k for _, k in built], device=start.device)[p]
-    else:
-        values, n = KNOTS[profile](start, target, profile_height)
+    if not isinstance(profile, torch.Tensor):
+        profile = torch.full(start.shape[:-1], profile, device=start.device)
+    built = [k(start, target, profile_height) for k in KNOTS]
+    p = profile.long()
+    values = torch.gather(
+        torch.stack([v for v, _ in built]), 0,
+        p[None, ..., None, None].expand((1,) + built[0][0].shape))[0]
+    n = torch.tensor([k for _, k in built], dtype=torch.int32,
+                     device=start.device)[p]
     times = compute_timing(values, n, average_velocity, min_duration)
     # pad times beyond the real knots with the end time
     idx = torch.arange(MAX_KNOTS, device=start.device)
-    if isinstance(n, int):
-        times = torch.where(idx < n, times, times[..., n - 1:n])
-        n = torch.full(start.shape[:-1], n, dtype=torch.int32,
-                       device=start.device)
-    else:
-        times = torch.where(idx < n[..., None], times,
-                            _last(times, n)[..., None])
+    times = torch.where(idx < n[..., None], times, _last(times, n)[..., None])
     lift_vel = start.new_tensor([0.0, 0.0, 1.0]) * liftoff_speed
     touch_vel = -touchdown_speed * surface_normal
     batch = start.shape[:-1]
     return fit(times, values, lift_vel.expand(batch + (3,)),
-               touch_vel.expand(batch + (3,)), n.to(torch.int32))
+               touch_vel.expand(batch + (3,)), n)

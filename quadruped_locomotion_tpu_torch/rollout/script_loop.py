@@ -40,12 +40,16 @@ class ScriptState(TensorStruct):
 
 
 def init_script_state(model: RobotModel, sched=None, height: float = 0.4,
-                      device=None) -> ScriptState:
+                      device=None, sim=None) -> ScriptState:
     """A standing start for one robot on ``device`` (default CUDA; raises
-    where it is absent). ``sched`` is unused, as in the JAX package."""
+    where it is absent), or, given ``sim``, the start of a new schedule
+    from that plant state: a fresh executor, FSM and PID integral, as the
+    JAX console starts each action of a collection. ``sched`` is unused,
+    as in the JAX package."""
     dev = resolve_device(device)
     model = model.to(dev)
-    sim = simlib.default_stance_state(model, height=height)
+    if sim is None:
+        sim = simlib.default_stance_state(model, height=height)
     es = steps_mod.init_exec_state(sim.feet_world, sim.robot.base.position,
                                    sim.robot.base.quaternion)
     return ScriptState(sim=sim, exec=es,

@@ -139,14 +139,9 @@ def step(
     j_new = jacobians(model, q_stance)
     qd_stance = linalg3.solve3(j_new.mT @ j_new + dls, mv(j_new.mT, v_feet_base))
 
-    # --- swing legs: articulated 3-DoF dynamics, skipped when every leg
-    # of every scenario is pinned (the selects below would discard them;
-    # a standing robot, as in most ticks of scripted motion)
-    if bool(support.all()):
-        q_swing, qd_swing = robot.q, robot.qd
-    else:
-        q_swing, qd_swing = _integrate_swing_legs(model, robot.q, robot.qd,
-                                                  tau, g_base, dt)
+    # --- swing legs: articulated 3-DoF dynamics
+    q_swing, qd_swing = _integrate_swing_legs(model, robot.q, robot.qd, tau,
+                                              g_base, dt)
 
     sup = support[..., None]
     q_new = torch.where(sup, q_stance, q_swing)
