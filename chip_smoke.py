@@ -2,9 +2,10 @@
 against its plain PyTorch version, and drives every ported path through
 it: the massless and articulated closed loops, the QP headline, the
 load-factor double solve and the config-5 scenario sweep; then the
-EKF-estimated closed loop and scripted motion (the preview of every
-bundled motion script and its closed loop), whose generic QPs do not use
-the kernel.
+EKF-estimated closed loop, scripted motion (the preview of every bundled
+motion script and its closed loop) and the 400 Hz runtime (the controller
+manager in process and the two-process realtime loop), whose generic QPs
+do not use the kernel; last, the bench entry's headline.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -53,9 +54,10 @@ Phases, each of which raises (exit code 1) when a gate fails:
    telemetry, upright fraction >= 0.99 at the end, a 5-tick run through
    the plain QP within 1e-3 m of the kernel run; the rollout's worst-KKT
    QP, re-solved alone, gives the kernel's in-rollout answer again.
-8. Latency at B = 1 (bench.py's ``_latency_measure``): 25-tick chunks
-   through the kernel with plant "none" and "articulated"; per-control-
-   tick p50 / p99 ms over the chunks, recorded, not gated.
+8. Latency at B = 1 (bench.py's ``_latency_measure``, through the bench
+   entry's ``latency_measure``): 25-tick chunks through the kernel with
+   plant "none" and "articulated", and 5 one-tick dispatches; per-control-
+   tick p50 / p99 ms, recorded, not gated (4 launches per planner tick).
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
@@ -100,6 +102,29 @@ Phases, each of which raises (exit code 1) when a gate fails:
    ± 0.02 m with the feet down, trot_test above 0.3 m, change_to_spot
    above 0.15 m); no kernel launch. Prints seconds per tick and the
    device ops of one tick.
+13. The controller manager in process on the card (``runtime/``):
+   ``SimHardware`` + ``ControllerManager`` + ``BalanceStandController``
+   from the 0.4 m stance for 400 ticks (the balance tick's cold and warm
+   variants and the bus tick each captured as a CUDA graph), then the
+   freeze controller, the single-leg controller on LF, an e-stop. Gates:
+   base height within 0.02 m of 0.4 and speed < 0.2 m/s after 400 ticks
+   (tests/test_runtime.py's bounds), finite torques, no tick kept the
+   previous torques, the replayed ticks' torques equal the eager tick's
+   on the same samples bit for bit, zero torque from the e-stop on, no
+   kernel launch. Prints ms per manager tick (replayed), per eager and
+   replayed balance tick and per bus step, the device ops of a cold tick,
+   a warm tick and a bus step, and the busy share, beside the 2.5 ms
+   budget.
+14. The two-process realtime loop (``realtime_bench.measure``), 400 Hz for
+   ``--rt-seconds`` nominal seconds (default 2), controller and bus on the
+   card. Gates: the bus ran and reported, the controller ticked, the
+   e-stop round trip was observed, the rings are gone. Prints the rates,
+   jitter and e-stop latency beside tests/test_realtime_bench.py's bounds
+   (not gated).
+
+Then ``python -m quadruped_locomotion_tpu_torch.bench --kernel-only`` runs
+as a subprocess: its last line must carry bench.py's headline keys and
+this card's name and power limit.
 
 ``--dump PATH`` writes the QPs that the gates single out (the phase-3
 Dx >= d violators, the rollouts' and the sweep's worst-KKT QPs, the
@@ -128,6 +153,7 @@ import torch
 SEED = 0
 BATCH = 4096  # scenarios and QP instances: the batch of bench.py's headline
 EST_BATCH = 1024  # scenarios of the estimated loop
+LATENCY_DISPATCHES = 5  # one-planner-tick dispatches timed in phase 8
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
@@ -715,39 +741,13 @@ def check_articulated(batch: int, ticks: int, device,
 
 def check_latency(chunks: int, device) -> dict:
     """Per-control-tick ms of 25-tick chunks at B = 1 (bench.py's
-    _latency_measure: vx = 0.2 m/s), after a 5-tick warm-up chunk."""
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
-    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    _latency_measure: vx = 0.2 m/s), after a 5-tick warm-up chunk, and of
+    LATENCY_DISPATCHES one-tick dispatches, through the bench entry's
+    ``latency_measure`` (which raises unless the kernel ran 4 times per
+    planner tick)."""
+    from quadruped_locomotion_tpu_torch import bench
 
-    model, params, gp, ls0, _ = setup_rollout(1, device)
-    cmd = cl.Command(linear_velocity=torch.tensor([[0.2, 0.0, 0.0]],
-                                                  device=device),
-                     yaw_rate=torch.zeros(1, device=device))
-    chunk = 25
-    out = {"launches": 0}
-    for plant in ("none", "articulated"):
-        fk.launches = 0
-        ls, _ = cl.rollout(model, params, gp, ls0, cmd, 5, plant=plant,
-                           device=device)
-        per_ctrl = []
-        for _ in range(chunks):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ls, tel = cl.rollout(model, params, gp, ls, cmd, chunk, plant=plant,
-                                 device=device)
-            torch.cuda.synchronize()
-            per_ctrl.append((time.perf_counter() - t0) * 1e3
-                            / (chunk * cl.CONTROL_SUBSTEPS))
-        want = (5 + chunks * chunk) * cl.CONTROL_SUBSTEPS
-        if fk.launches != want:
-            raise AssertionError(f"latency {plant}: {fk.launches} launches, "
-                                 f"want {want}")
-        if not torch.isfinite(tel["base_position"]).all():
-            raise AssertionError(f"latency {plant}: telemetry not finite")
-        out["launches"] += fk.launches
-        out[plant] = dict(p50_ms=float(np.percentile(per_ctrl, 50)),
-                          p99_ms=float(np.percentile(per_ctrl, 99)),
-                          chunks_ms=per_ctrl)
+    out = bench.latency_measure(chunks, device, dispatches=LATENCY_DISPATCHES)
     log("latency B=1 per 400 Hz control tick (25-tick chunks): "
         + json.dumps(out))
     return out
@@ -1106,6 +1106,197 @@ def check_scripted(standup_ticks: int, device) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phases 13-14: the runtime (no kernel: the balance tick's QP is the generic
+# IPM, as in the JAX manager)
+# --------------------------------------------------------------------------
+
+MANAGER_TICKS = 400  # 1 s at 400 Hz (tests/test_runtime.py's standing run)
+BUDGET_MS = 2.5  # the 400 Hz reference loop
+RT_BOUNDS = dict(bus_rate_hz=300.0, bus_jitter_p99=0.006,
+                 controller_rate_hz=120.0, estop_latency_s=0.05)
+
+
+def _ms_stats(ms) -> dict:
+    return dict(p50_ms=float(np.percentile(ms, 50)),
+                p99_ms=float(np.percentile(ms, 99)))
+
+
+def check_manager(device) -> dict:
+    """Phase 13: SimHardware + ControllerManager + BalanceStandController
+    on the card from the 0.4 m stance for MANAGER_TICKS ticks, then a
+    switch to the freeze controller, then the single-leg controller on LF,
+    then an e-stop."""
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.runtime import hal, manager as mgr
+    from quadruped_locomotion_tpu_torch.types import RobotModel
+
+    model = RobotModel.simpledog(device)
+    hw = hal.SimHardware(model, height=0.4, device=device)
+    m = mgr.ControllerManager(hw, model)
+    bal = mgr.BalanceStandController(model, device=device)
+    frz = mgr.FreezeController(model, device=device)
+    leg = mgr.SingleLegController(model, legs=(0,), device=device)
+    for c in (bal, frz, leg):
+        m.register(c)
+    fk.launches = 0
+    t0 = time.perf_counter()
+    m.switch(bal.name)  # builds and captures both balance variants
+    bal.warmup(hw.read())
+    capture_s = time.perf_counter() - t0
+    samples, taus, tick_ms = [], [], []
+    for _ in range(MANAGER_TICKS):
+        t0 = time.perf_counter()
+        sample = m.tick()  # the copies out of the card synchronise
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        samples.append(sample.pack())
+        taus.append(m._last_tau.copy())
+    end = hw.read()
+    taus = np.stack(taus)
+    res = dict(capture_s=capture_s, ticks=MANAGER_TICKS,
+               height=float(end.base_position[2]),
+               speed=float(np.linalg.norm(end.base_linear_velocity)),
+               finite=bool(np.isfinite(taus).all()),
+               kept_previous=m.kept_previous,
+               replays=dict(cold=bal._cold.replays,
+                            warm=bal._warm_tick.replays,
+                            bus=hw._tick.replays),
+               manager_tick=_ms_stats(tick_ms))
+
+    # the same samples through the eager tick (the captured function)
+    vecs = torch.as_tensor(np.stack(samples), device=device)
+    eager, eager_ms, warm = [], [], None
+    for v in vecs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tau, warm = mgr._balance_vec_update(
+            bal.model, bal.gains, bal.cfd, v, bal._target, warm,
+            mgr.COLD_ITERS if warm is None else bal._qp_iters,
+            mgr.COLD_POLISH if warm is None else mgr.WARM_POLISH)
+        eager.append(tau.cpu().numpy())
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    eager = np.stack(eager)
+    res.update(eager_equal=bool(np.array_equal(eager, taus)),
+               eager_max_abs_diff=float(np.abs(eager - taus).max()),
+               eager_tick=_ms_stats(eager_ms[1:]))
+
+    # replayed controller and bus ticks alone, and device ops of the eager
+    # cold tick, warm tick and bus step
+    last = hal.RobotSample.unpack(samples[-1])
+    ctrl_ms, bus_ms = [], []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        bal.update(last)
+        ctrl_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        hw.write(taus[-1])
+        bus_ms.append((time.perf_counter() - t0) * 1e3)
+    v = vecs[-1]
+    _, cold_ops, cold_busy, cold_wall = device_ops(lambda: mgr._balance_vec_update(
+        bal.model, bal.gains, bal.cfd, v, bal._target, None, mgr.COLD_ITERS,
+        mgr.COLD_POLISH))
+    _, warm_ops, warm_busy, warm_wall = device_ops(lambda: mgr._balance_vec_update(
+        bal.model, bal.gains, bal.cfd, v, bal._target, warm, bal._qp_iters,
+        mgr.WARM_POLISH))
+    _, bus_ops, _, _ = device_ops(hw._step_pack)
+    _, _, rep_busy, rep_wall = device_ops(lambda: [m.tick() for _ in range(20)])
+    res.update(controller_replay=_ms_stats(ctrl_ms), bus_replay=_ms_stats(bus_ms),
+               ops_cold_tick=cold_ops, ops_warm_tick=warm_ops,
+               ops_bus_step=bus_ops, eager_cold_busy=cold_busy / cold_wall,
+               eager_warm_busy=warm_busy / warm_wall,
+               replayed_manager_busy=rep_busy / rep_wall,
+               budget_ms=BUDGET_MS)
+
+    # switch to freeze, then the single-leg controller on LF, then e-stop
+    m.switch(frz.name)
+    m.run(40)
+    m.switch(leg.name)
+    m.run(40)
+    switched = dict(finite=bool(np.isfinite(m._last_tau).all()),
+                    kept_previous=m.kept_previous)
+    m.estop()
+    after = []
+    for _ in range(10):
+        m.tick()
+        after.append(hw._tau.cpu().numpy())
+    final = hw.read()
+    res.update(switched=switched, estop_flag=final.estop,
+               estop_max_abs_tau=float(np.abs(np.stack(after)).max()),
+               estop_sample_tau=float(np.abs(final.tau).max()),
+               kernel_launches=fk.launches)
+    log("manager on the card: " + json.dumps(res))
+    if not (abs(res["height"] - 0.4) < 0.02 and res["speed"] < 0.2):
+        raise AssertionError(f"standing balance drifted: {res}")
+    if not (res["finite"] and switched["finite"]):
+        raise AssertionError(f"non-finite manager torques: {res}")
+    if res["kept_previous"] or switched["kept_previous"]:
+        raise AssertionError(f"a tick kept the previous torques: {res}")
+    if not res["eager_equal"]:
+        raise AssertionError(f"replayed ticks differ from the eager tick: {res}")
+    if not (res["estop_flag"] and res["estop_max_abs_tau"] == 0.0
+            and res["estop_sample_tau"] == 0.0):
+        raise AssertionError(f"e-stop did not zero the torques: {res}")
+    if fk.launches:
+        raise AssertionError("the manager reached the QP kernel")
+    return res
+
+
+def check_realtime(duration_s: float) -> dict:
+    """Phase 14: the two-process loop at 400 Hz with the controller and the
+    bus on the card. Gates: the bus ran and reported, the controller
+    ticked, the e-stop round trip was observed, the rings are gone. The
+    JAX test's rate bounds are printed beside the figures, not gated."""
+    from quadruped_locomotion_tpu_torch.runtime import realtime_bench as rb
+
+    t0 = time.perf_counter()
+    rep = rb.measure(duration_s=duration_s, rate_hz=400.0,
+                     prefix="/qlt_torch_smoke", device="cuda",
+                     bus_device="cuda")
+    rep["wall_s"] = time.perf_counter() - t0
+    leftover = [p.name for p in Path("/dev/shm").glob("qlt_torch_smoke*")]
+    rep["bounds"] = {k: dict(measured=rep.get(k), bound=b)
+                     for k, b in RT_BOUNDS.items()}
+    log("realtime two-process loop on the card: " + json.dumps(rep))
+    if not rep.get("bus_ticks") or "bus_error" in rep:
+        raise AssertionError(f"the bus did not run: {rep}")
+    if rep["controller_ticks"] < 10:
+        raise AssertionError(f"the controller did not tick: {rep}")
+    if rep["estop_latency_s"] is None:
+        raise AssertionError(f"the e-stop round trip was not observed: {rep}")
+    if leftover:
+        raise AssertionError(f"rings left behind: {leftover}")
+    return rep
+
+
+BENCH_HEADLINE_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "chain_per_dispatch",
+    "batch_time_ms", "single_dispatch_solves_per_s", "single_dispatch_ms",
+    "kkt_p50", "kkt_p99", "wrench_err_p50", "wrench_err_p99",
+    "tail_frac_gt_1N", "tail_active_constraint_frac", "tail_oracle_gap_max",
+    "tail_proven", "device")
+
+
+def check_bench_entry(card: str) -> dict:
+    """``python -m quadruped_locomotion_tpu_torch.bench --kernel-only`` (the
+    headline) as a subprocess: its last line carries bench.py's headline
+    keys and the card's name."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "quadruped_locomotion_tpu_torch.bench",
+         "--kernel-only"], capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench entry exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"bench entry ({time.perf_counter() - t0:.1f} s): " + json.dumps(line))
+    missing = [k for k in BENCH_HEADLINE_KEYS if k not in line]
+    if missing or line["device"] != card:
+        raise AssertionError(f"bench entry line: missing {missing}, "
+                             f"device {line.get('device')!r}")
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=25,
@@ -1122,6 +1313,8 @@ def main() -> int:
     ap.add_argument("--script-ticks", type=int, default=40,
                     help="closed-loop ticks of standup from tick 0 "
                          "(40-120: the JAX golden's length)")
+    ap.add_argument("--rt-seconds", type=float, default=2.0,
+                    help="nominal seconds of the two-process loop at 400 Hz")
     ap.add_argument("--dump", type=Path, default=None,
                     help="write the QP instances the gates look at (the "
                          "kernel's and plain version's Dx >= d violators, "
@@ -1175,6 +1368,9 @@ def main() -> int:
                 device)
     pre = timed("preview", check_preview, device)
     scr = timed("scripted", check_scripted, args.script_ticks, device)
+    man = timed("manager", check_manager, device)
+    timed("realtime", check_realtime, args.rt_seconds)
+    timed("bench_entry", check_bench_entry, card)
     if dump is not None:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
         np.savez(args.dump, **dump)
@@ -1182,7 +1378,8 @@ def main() -> int:
     launches = (m["launches"] + m["launches_none"] + h["launches"]
                 + lf["launches"] + a["launches"] + lat["launches"]
                 + sw["launches"] + est["kernel_launches"]
-                + pre["kernel_launches"] + scr["kernel_launches"])
+                + pre["kernel_launches"] + scr["kernel_launches"]
+                + man["kernel_launches"])
     log("phase wall seconds: " + json.dumps(phase_s)
         + f"; whole script {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{

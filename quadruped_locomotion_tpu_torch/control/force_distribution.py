@@ -20,7 +20,7 @@ from ..model.dynamics import gravity_torques
 from ..model.kinematics import forward_kinematics, jacobians, mv
 from ..ops import fd_qp_kernel, qp
 from ..ops.qp import QpSolution
-from ..types import GRAVITY, CfdParams, RobotModel, RobotState
+from ..types import GRAVITY, CfdParams, RobotModel, RobotState, const
 from ..utils.rotations import cross, quat_inv_rotate, skew
 
 
@@ -61,7 +61,7 @@ def build_qp(
     # lies in the base XZ-plane (t1 = n × ŷ_base), anchored to the body.
     n_base = quat_inv_rotate(state.base.quaternion[..., None, :],
                              state.surface_normal)  # (...,4,3)
-    y_base = torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev)
+    y_base = const((0.0, 1.0, 0.0), virtual_force)
     t1 = cross(n_base, y_base)
     t1 = t1 / torch.clamp(torch.linalg.norm(t1, dim=-1, keepdim=True), min=1e-9)
     t2 = cross(n_base, t1)
@@ -77,10 +77,9 @@ def build_qp(
     D = (rows[..., :, :, None, :] * eye4[:, None, :, None]).reshape(
         batch + (20, 12))
     sup = state.support[..., :, None]
-    d_min = torch.where(sup, params.min_normal_force.to(dtype),
-                        torch.tensor(-1.0, dtype=dtype, device=dev))
-    d_cone = torch.where(sup, torch.tensor(0.0, dtype=dtype, device=dev),
-                         torch.tensor(-1.0, dtype=dtype, device=dev))
+    off = const(-1.0, virtual_force)
+    d_min = torch.where(sup, params.min_normal_force.to(dtype), off)
+    d_cone = torch.where(sup, const(0.0, virtual_force), off)
     d = torch.cat([d_min, d_cone.expand(batch + (4, 4))], dim=-1).reshape(
         batch + (20,))
     return A, b, S, W, D, d
@@ -277,7 +276,7 @@ def stance_torques(
     contact_forces: torch.Tensor,
 ) -> torch.Tensor:
     """τ_i = J_iᵀ f_i + τ_gravity(q_i) for every leg: (...,4,3)."""
-    g_world = contact_forces.new_tensor([0.0, 0.0, -GRAVITY])
+    g_world = const((0.0, 0.0, -GRAVITY), contact_forces)
     g_base = quat_inv_rotate(state.base.quaternion, g_world)
     j = jacobians(model, state.q)
     tau_f = torch.einsum("...lji,...lj->...li", j, contact_forces)

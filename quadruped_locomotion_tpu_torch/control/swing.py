@@ -12,13 +12,13 @@ from torch.func import jvp
 from ..model.dynamics import gravity_torques, leg_inverse_dynamics
 from ..model.kinematics import forward_kinematics, jacobians, mv
 from ..ops import linalg3
-from ..types import GRAVITY, RobotModel, RobotState, SwingGains
+from ..types import GRAVITY, RobotModel, RobotState, SwingGains, const
 from ..utils.rotations import quat_inv_rotate
 
 
 def _gravity_in_base(state: RobotState, like: torch.Tensor) -> torch.Tensor:
     return quat_inv_rotate(state.base.quaternion,
-                           like.new_tensor([0.0, 0.0, -GRAVITY]))
+                           const((0.0, 0.0, -GRAVITY), like))
 
 
 def swing_torques(

@@ -4,7 +4,7 @@ compensation, in the base frame, batched over leading dims."""
 
 from __future__ import annotations
 
-from ..types import GRAVITY, BaseTarget, RobotModel, RobotState, VmcGains
+from ..types import GRAVITY, BaseTarget, RobotModel, RobotState, VmcGains, const
 from ..utils.rotations import (
     cross, quat_conj, quat_inv_rotate, quat_log, quat_mul,
 )
@@ -18,7 +18,7 @@ def compute_virtual_wrench(
 ):
     """Returns (virtual_force, virtual_torque), each (..., 3), base frame."""
     q_act = state.base.quaternion
-    vec = lambda *v: q_act.new_tensor(v)  # noqa: E731
+    vec = lambda *v: const(v, q_act)  # noqa: E731
 
     # errors: position/velocity in world, orientation as a base-frame
     # rotation vector -log(q_t⁻¹ ⊗ q_a), angular velocity in base frame

@@ -164,7 +164,7 @@ def tail_proof(A, b, S, W, D, d, x, wrench_err, max_oracle: int = 64):
 def quality(A, b, S, W, D, d, x, kkt) -> dict:
     """KKT and wrench-error percentiles of a solved batch and its tail
     proof (bench.py's health block; host arrays, any device)."""
-    kkt_np = kkt.double().cpu().numpy()
+    kkt_np = kkt.cpu().numpy()  # float32, as bench.py takes its percentiles
     werr = wrench_error(A, x, b).double().cpu().numpy()
     tail_frac, active_frac, oracle_gap, proven = tail_proof(
         *(t.cpu().numpy() for t in (A, b, S, W, D, d, x)), werr)

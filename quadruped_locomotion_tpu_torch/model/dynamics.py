@@ -19,7 +19,7 @@ from functools import partial
 import torch
 from torch.func import grad, jacfwd, vmap
 
-from ..types import RobotModel
+from ..types import RobotModel, const
 from .kinematics import leg_com_positions_hip, link_rotations_hip, mv
 
 
@@ -34,7 +34,7 @@ def _mass_matrix(model: RobotModel, q_leg):
     dtype = q_leg.dtype
     jv = jacfwd(partial(leg_com_positions_hip, model))(q_leg)  # (3,3,3)
     rots = link_rotations_hip(model, q_leg)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=q_leg.device)
+    z = const((0.0, 0.0, 1.0), q_leg)
     # joint axes in the hip frame; link k sees joints j <= k
     axes = torch.stack([z, mv(rots[1], z), mv(rots[2], z)], dim=-1)
     m = torch.zeros((3, 3), dtype=dtype, device=q_leg.device)

@@ -14,14 +14,13 @@ import math
 
 import torch
 
-from ..types import RobotModel
+from ..types import RobotModel, const
 from ..utils.rotations import cross, rotz, wrap_angle
 
 
 def _rx_neg90(like: torch.Tensor) -> torch.Tensor:
     """Rx(-π/2): (x, y, z) -> (x, z, -y)."""
-    return torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, -1.0, 0.0]],
-                        dtype=like.dtype, device=like.device)
+    return const(((1.0, 0.0, 0.0), (0.0, 0.0, 1.0), (0.0, -1.0, 0.0)), like)
 
 
 def mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -53,7 +52,7 @@ def jacobians(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
     q1, q2 = q[..., 0], q[..., 1]
     r1 = rotz(q1) @ _rx_neg90(q)
     r2 = r1 @ rotz(q2)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
+    z = const((0.0, 0.0, 1.0), q)
     p = leg_fk_hip(model, q)
     axis2 = mv(r1, z)
     axis3 = mv(r2, z)

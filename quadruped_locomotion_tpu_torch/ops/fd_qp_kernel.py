@@ -210,7 +210,8 @@ def form_quadratic(A, S, W, b):
     W (..., 12), b (..., 6), in full float32 (callers keep TF32 off, see
     ``types.full_f32_matmuls``)."""
     SA = A * S[..., :, None]
-    return (2.0 * A.mT) @ SA + torch.diag_embed(W), _mv(-2.0 * SA.mT, b)
+    g = ((-2.0 * SA.mT) @ b.unsqueeze(-1)).squeeze(-1)
+    return (2.0 * A.mT) @ SA + torch.diag_embed(W), g
 
 
 def solve_weighted_ls_fd_qp(A, S, b, W, D, d, iters: int = 15):
@@ -241,39 +242,63 @@ def solve_weighted_ls_fd_qp_plain(A, S, b, W, D, d, iters: int = 15):
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version: the same algorithm, vectorised over the batch and
-# over matrix entries; Python loops run only over Cholesky columns and IPM
-# iterations. Factors keep the kernel's guarded diagonal rsqrt(max(·,1e-30)),
-# stored as its inverse so that torch's triangular solves apply it.
+# Plain PyTorch version: the reference kernel's operations in the
+# reference kernel's order (``qp_pallas._ipm_kernel``, as its eager trace
+# ``solve_fd_qp_emulated`` runs them), vectorised over the batch and over
+# the independent rows of each step. Every sum accumulates term by term in
+# the trace's order as separate float32 products and sums (one op, one
+# rounding: no matmul, no reduction kernel, no fused multiply-add), and
+# factors keep the trace's reciprocal diagonal. Maxima and minima are
+# order-free. The one operation whose rounding can differ is rsqrt
+# (``torch.rsqrt`` against XLA's, within 2 ulp).
 # ---------------------------------------------------------------------------
 
 
+def _col(t, like):
+    """A (B,) per-instance scalar broadcast against ``like`` (B, ...)."""
+    return t.reshape(t.shape + (1,) * (like.dim() - t.dim()))
+
+
 def _cholesky(M):
-    """Cholesky factor of the lower triangle of M (B, m, m)."""
+    """Lower factor of M (B, m, m), column by column as the trace: its
+    diagonal holds rsqrt(max(·, 1e-30)), the reciprocal of the pivot."""
     m = M.shape[-1]
     L = torch.zeros_like(M)
     for j in range(m):
-        Lj = L[:, j, :j]
-        acc = M[:, j, j] - (Lj * Lj).sum(-1)
+        acc = M[:, j, j]
+        for k in range(j):
+            acc = acc - L[:, j, k] * L[:, j, k]
         rdiag = torch.rsqrt(torch.clamp(acc, min=1e-30))
-        L[:, j, j] = 1.0 / rdiag
+        L[:, j, j] = rdiag
         if j + 1 < m:
-            acc2 = M[:, j + 1:, j] - (L[:, j + 1:, :j] * Lj[:, None, :]).sum(-1)
+            acc2 = M[:, j + 1:, j]
+            for k in range(j):
+                acc2 = acc2 - L[:, j + 1:, k] * L[:, j, k:k + 1]
             L[:, j + 1:, j] = acc2 * rdiag[:, None]
     return L
 
 
 def _chol_solve(L, b):
-    """Solve (L Lᵀ) x = b for b (B, m) or (B, m, k)."""
-    vec = b.dim() == 2
-    rhs = b.unsqueeze(-1) if vec else b
-    y = torch.linalg.solve_triangular(L, rhs, upper=False)
-    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
-    return x.squeeze(-1) if vec else x
+    """Solve (L Lᵀ) x = b for b (B, m) or (B, m, r): forward then backward
+    substitution, row by row, multiplying by the stored reciprocal."""
+    m = L.shape[-1]
+    y = [None] * m
+    for i in range(m):
+        acc = b[:, i]
+        for k in range(i):
+            acc = acc - _col(L[:, i, k], acc) * y[k]
+        y[i] = acc * _col(L[:, i, i], acc)
+    x = [None] * m
+    for i in reversed(range(m)):
+        acc = y[i]
+        for k in range(i + 1, m):
+            acc = acc - _col(L[:, k, i], acc) * x[k]
+        x[i] = acc * _col(L[:, i, i], acc)
+    return torch.stack(x, dim=1)
 
 
 def _scaled_cholesky(M):
-    """Jacobi-equilibrated factor of diag(s)·M·diag(s), s = 1/√diag(M)."""
+    """Jacobi-equilibrated factor of diag(s)·M·diag(s), s = rsqrt(diag M)."""
     dsc = torch.rsqrt(torch.clamp(torch.diagonal(M, dim1=-2, dim2=-1),
                                   min=1e-30))
     return _cholesky(M * dsc[:, :, None] * dsc[:, None, :]), dsc
@@ -283,34 +308,73 @@ def _scaled_solve(L, dsc, b):
     return _chol_solve(L, b * dsc) * dsc
 
 
-def _mv(A, v):
-    return (A @ v.unsqueeze(-1)).squeeze(-1)
+def _dot_rows(acc, A, v, sign=1.0):
+    """acc[r] ± Σ_c A[r, c]·v[c], term by term over c: A (B, R, C),
+    v (B, C)."""
+    for c in range(A.shape[-1]):
+        term = A[:, :, c] * v[:, c:c + 1]
+        acc = acc + term if sign > 0 else acc - term
+    return acc
 
 
-def _mtv(A, v):
-    return (A.mT @ v.unsqueeze(-1)).squeeze(-1)
+def _dot_cols(acc, A, v, sign=1.0):
+    """acc[c] ± Σ_r A[r, c]·v[r], term by term over r: A (B, R, C),
+    v (B, R)."""
+    for r in range(A.shape[1]):
+        term = A[:, r, :] * v[:, r:r + 1]
+        acc = acc + term if sign > 0 else acc - term
+    return acc
+
+
+def _sum_terms(t):
+    """Σ_k t[:, k] term by term from 0 (B, K) -> (B,)."""
+    acc = torch.zeros_like(t[:, 0])
+    for k in range(t.shape[-1]):
+        acc = acc + t[:, k]
+    return acc
+
+
+def _stationarity(g, G, x, D, z):
+    """g + G x − Dᵀ z, row by row: the j sum, then the k sum."""
+    return _dot_cols(_dot_rows(g, G, x), D, z, -1.0)
+
+
+def _slack(D, d, x):
+    """−d + D x, term by term over the columns."""
+    return _dot_rows(-d, D, x)
 
 
 def _step_len_recip(rv, dv):
     """min(1, 0.995 / max_k(-dv·rv | dv < 0)), 1 where no dv < 0."""
     m = torch.where(dv < 0.0, -dv * rv, torch.zeros_like(dv)).amax(-1)
-    alpha = 0.995 / torch.clamp(m, min=1e-30)
+    # a true division (a Python number over a tensor is a reciprocal and
+    # a product in PyTorch: two roundings)
+    alpha = torch.full_like(m, 0.995) / torch.clamp(m, min=1e-30)
     return torch.where(m > 0.0, torch.clamp(alpha, max=1.0),
                        torch.ones_like(m))
 
 
 def _honest_kkt(G, g, D, d, x, z, scale_g, scale_d):
-    stat = (g + _mv(G, x) - _mtv(D, z)).abs().amax(-1)
-    slack = _mv(D, x) - d
+    stat = _stationarity(g, G, x, D, z).abs().amax(-1)
+    slack = _slack(D, d, x)
     viol = torch.clamp(-slack, min=0.0).amax(-1)
-    comp = (z * slack.abs()).sum(-1) * (1.0 / MI)
+    comp = slack[:, 0] * 0.0
+    for k in range(MI):
+        comp = comp + z[:, k] * slack[:, k].abs()
+    comp = comp * (1.0 / MI)
     dual = torch.clamp(-z, min=0.0).amax(-1) / (1.0 + z.abs().amax(-1))
     return torch.maximum(torch.maximum(stat / scale_g, dual),
                          torch.maximum(viol / scale_d, comp / scale_g))
 
 
+def _lower_sym(M):
+    """The lower triangle mirrored onto the upper one."""
+    return torch.tril(M) + torch.tril(M, -1).mT
+
+
 def solve_fd_qp_plain(G, g, D, d, iters: int = 15):
-    """Plain PyTorch version of the kernel (same inputs and outputs)."""
+    """Plain PyTorch version of the kernel (same inputs and outputs): the
+    reference kernel's arithmetic in its order (see above)."""
     B = G.shape[0]
     eye = torch.eye(N, dtype=G.dtype, device=G.device)
     Greg = G + _DELTA * eye
@@ -319,32 +383,36 @@ def solve_fd_qp_plain(G, g, D, d, iters: int = 15):
 
     L0 = _cholesky(Greg)
     x = _chol_solve(L0, -g)
-    s = torch.clamp(_mv(D, x) - d, min=1.0)
+    s = torch.clamp(_slack(D, d, x), min=1.0)
     z = torch.ones_like(d)
     xb, zb = x, z
     kb = torch.full((B,), float("inf"), dtype=G.dtype, device=G.device)
     done = torch.zeros((B,), dtype=torch.bool, device=G.device)
 
     for _ in range(iters):
-        r_d = g + _mv(G, x) - _mtv(D, z)
-        r_p = _mv(D, x) - d - s
-        mu = (s * z).sum(-1) * (1.0 / MI)
+        r_d = _stationarity(g, G, x, D, z)
+        r_p = _dot_rows(-d - s, D, x)
+        mu = _sum_terms(s * z) * (1.0 / MI)
         rs = 1.0 / torch.clamp(s, min=_S_FLOOR)
         rz = 1.0 / torch.clamp(z, min=_S_FLOOR)
-        zs = z * rs
-        L, dsc = _scaled_cholesky(Greg + D.mT @ (D * zs[:, :, None]))
+        DS = D * (z * rs)[:, :, None]
+        M = Greg
+        for k in range(MI):  # M = Greg + Dᵀ diag(z/s) D, lower triangle
+            M = M + DS[:, k, :, None] * D[:, k, None, :]
+        L, dsc = _scaled_cholesky(_lower_sym(M))
 
         def kkt_step(r_c):
-            dx = _scaled_solve(L, dsc, -r_d - _mtv(D, (r_c + z * r_p) * rs))
-            ds = r_p + _mv(D, dx)
+            rhs = _dot_cols(-r_d, D, (r_c + z * r_p) * rs, -1.0)
+            dx = _scaled_solve(L, dsc, rhs)
+            ds = _dot_rows(r_p, D, dx)
             dz = -(r_c + z * ds) * rs
             return dx, ds, dz
 
         dx_a, ds_a, dz_a = kkt_step(s * z)
-        alpha_p = _step_len_recip(rs, ds_a)
-        alpha_d = _step_len_recip(rz, dz_a)
-        mu_aff = ((s + alpha_p[:, None] * ds_a)
-                  * (z + alpha_d[:, None] * dz_a)).sum(-1) * (1.0 / MI)
+        alpha_p = _step_len_recip(rs, ds_a)[:, None]
+        alpha_d = _step_len_recip(rz, dz_a)[:, None]
+        mu_aff = _sum_terms((s + alpha_p * ds_a) * (z + alpha_d * dz_a)
+                            ) * (1.0 / MI)
         ratio = mu_aff / torch.clamp(mu, min=1e-30)
         sigma = torch.clamp(ratio * ratio * ratio, 0.0, 1.0)
 
@@ -362,7 +430,9 @@ def solve_fd_qp_plain(G, g, D, d, iters: int = 15):
         zb = torch.where(better, z, zb)
         kb = torch.where(better[:, 0], kkt_new, kb)
 
-        total = x_new.sum(-1) + (s_new + z_new).sum(-1)
+        total = _sum_terms(x_new)
+        for k in range(MI):
+            total = total + s_new[:, k] + z_new[:, k]
         bad = ~torch.isfinite(total)
         keep = (~done & ~bad)[:, None]
         x = torch.where(keep, x_new, x)
@@ -378,20 +448,23 @@ def solve_fd_qp_plain(G, g, D, d, iters: int = 15):
     z = torch.where(take_last[:, None], z, zb)
     kkt = torch.where(take_last, k_last, k_best)
 
-    w = (z > _mv(D, x) - d).to(G.dtype)
+    w = torch.where(z > _slack(D, d, x), 1.0, 0.0).to(G.dtype)
     Ew = D * w[:, :, None]
-    # K = Ew G⁻¹ Ewᵀ + diag(1 - w) + δI
-    K = Ew @ _chol_solve(L0, Ew.mT) + torch.diag_embed(1.0 - w + _DELTA)
-    LK, dscK = _scaled_cholesky(K)
+    GiEwT = _chol_solve(L0, Ew.mT)  # (B, N, MI): column k is G⁻¹ Ew[k]
+    # K = Ew G⁻¹ Ewᵀ + diag(1 - w) + δI, lower triangle, term by term in j
+    K = torch.diag_embed((1.0 - w) + _DELTA)
+    for j in range(N):
+        K = K + Ew[:, :, j, None] * GiEwT[:, None, j, :]
+    LK, dscK = _scaled_cholesky(_lower_sym(K))
 
     xp = _chol_solve(L0, -g)
     lam = torch.zeros_like(d)
     for _ in range(4):
-        r1 = -g + _mtv(Ew, lam) - _mv(G, xp)
-        r2 = (d - _mv(D, xp)) * w
+        r1 = _dot_rows(_dot_cols(-g, Ew, lam), G, xp, -1.0)
+        r2 = _dot_rows(d, D, xp, -1.0) * w
         t = _chol_solve(L0, r1)
-        dlam = _scaled_solve(LK, dscK, r2 - _mv(Ew, t))
-        xp = xp + _chol_solve(L0, r1 + _mtv(Ew, dlam))
+        dlam = _scaled_solve(LK, dscK, _dot_rows(r2, Ew, t, -1.0))
+        xp = xp + _chol_solve(L0, _dot_cols(r1, Ew, dlam))
         lam = lam + dlam
     lam = lam * w
     k_pol = _honest_kkt(G, g, D, d, xp, lam, scale_g, scale_d)
@@ -399,7 +472,7 @@ def solve_fd_qp_plain(G, g, D, d, iters: int = 15):
     x = torch.where(take_pol[:, None], xp, x)
     z = torch.where(take_pol[:, None], lam, z)
     kkt = torch.where(take_pol, k_pol, kkt)
-    s = torch.clamp(_mv(D, x) - d, min=0.0)
+    s = torch.clamp(_slack(D, d, x), min=0.0)
     return x, s, z, kkt
 
 

@@ -17,7 +17,7 @@ import torch
 from ..model.dynamics import gravity_torques, leg_inverse_dynamics, leg_mass_matrix
 from ..model.kinematics import forward_kinematics, inverse_kinematics, jacobians, mv
 from ..ops import linalg3
-from ..types import GRAVITY, BaseState, RobotModel, RobotState, TensorStruct
+from ..types import GRAVITY, BaseState, RobotModel, RobotState, TensorStruct, const
 from ..utils.rotations import (
     cross, quat_exp, quat_inv_rotate, quat_mul, quat_normalize, quat_rotate,
 )
@@ -98,7 +98,7 @@ def step(
         base.quaternion[..., None, :], model.hip_pos.to(dtype))
     extension = torch.linalg.norm(sim.feet_world - hips_world, dim=-1)
     support = support & (extension < 0.995 * reach)
-    g_world = tau.new_tensor([0.0, 0.0, -GRAVITY])
+    g_world = const((0.0, 0.0, -GRAVITY), tau)
     g_base = quat_inv_rotate(base.quaternion, g_world)
 
     feet_base = quat_inv_rotate(base.quaternion[..., None, :],
@@ -148,11 +148,12 @@ def step(
     qd_new = torch.where(sup, qd_stance, qd_swing)
 
     # swing feet move with the leg; stance feet stay pinned at the surface
+    ground = (torch.as_tensor(ground_height, dtype=dtype, device=tau.device)
+              if isinstance(ground_height, torch.Tensor)
+              else const(float(ground_height), tau))
     feet_pinned = torch.cat([
         sim.feet_world[..., :2],
-        torch.maximum(sim.feet_world[..., 2:],
-                      torch.as_tensor(ground_height, dtype=dtype,
-                                      device=tau.device)[..., None]),
+        torch.maximum(sim.feet_world[..., 2:], ground[..., None]),
     ], dim=-1)
     feet_world_new = torch.where(
         sup, feet_pinned,

@@ -10,6 +10,7 @@ broadcast. Leg order LF=0, RF=1, RH=2, LH=3; per-leg joints are
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -31,6 +32,20 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values, dtype, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def const(values, like: torch.Tensor) -> torch.Tensor:
+    """The constant ``values`` (a number or nested tuples) on ``like``'s
+    dtype and device, made once per process and reused after: a tick
+    captured in a CUDA graph may launch kernels but not copy from the
+    host, so the tick's constants are made by an eager run before the
+    capture. Callers must not write into the result."""
+    return _const(values, like.dtype, like.device)
 
 
 def full_f32_matmuls() -> None:
@@ -164,7 +179,7 @@ class BaseState(TensorStruct):
         dev = resolve_device(device)
         z3 = torch.zeros(*batch, 3, dtype=dtype, device=dev)
         quat = torch.zeros(*batch, 4, dtype=dtype, device=dev)
-        quat[..., 0] = 1.0
+        quat[..., 0].fill_(1.0)  # a fill kernel: no host copy to capture
         return cls(position=z3, quaternion=quat,
                    linear_velocity=z3.clone(), angular_velocity=z3.clone())
 
@@ -185,7 +200,7 @@ class RobotState(TensorStruct):
         dev = resolve_device(device)
         z43 = torch.zeros(*batch, 4, 3, dtype=dtype, device=dev)
         normal = z43.clone()
-        normal[..., 2] = 1.0
+        normal[..., 2].fill_(1.0)
         return cls(
             base=BaseState.identity(batch, dev, dtype),
             q=z43, qd=z43.clone(), tau=z43.clone(),

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from ..types import const
+
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Broadcasting cross product over the last axis."""
@@ -36,7 +38,7 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * const((1.0, -1.0, -1.0, -1.0), q)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

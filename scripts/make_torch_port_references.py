@@ -24,13 +24,12 @@ section, ``fd_qp/``: the problems of ``tests/test_torch_fd_qp.py`` (the
 stance classes of ``tests/test_qp_pallas.py::_stance_problems`` with G, g
 formed at full precision, seeded random positive-definite QPs, then the
 QPs recorded on the card in ``tests/data/torch_port_chip_qps.npz``: the
-phase-3 violators and the worst-KKT QPs of the massless and articulated
-rollouts and of the config-5 sweep) and
-what the JAX kernel trace (``qp_pallas.solve_fd_qp_emulated``) and the
-XLA IPM (``jax.vmap(qp.solve_qp)``) return on them, plus the trace on 63
-ulp-perturbed copies of each rollout's worst QP (where the reference's
-own outcome is chaotic). Regenerate it after refreshing the recorded
-QPs.
+phase-3 violators and the worst-KKT QPs of the massless rollout at 100
+and at 25 ticks, of the articulated rollout and of the config-5 sweep)
+and what the JAX kernel trace (``qp_pallas.solve_fd_qp_emulated``) and
+the XLA IPM (``jax.vmap(qp.solve_qp)``) return on them, plus the trace on
+63 ulp-perturbed copies of each worst QP (where the reference's own
+outcome is chaotic). Regenerate it after refreshing the recorded QPs.
 
 The slice-4 file (``tests/data/torch_port_slice4_refs.npz``) holds the
 inputs and JAX outputs of ``tests/test_torch_{terrain,sweep,estimated}.py``:
@@ -68,8 +67,14 @@ inputs and JAX outputs of ``tests/test_torch_{planning,actions}.py``:
   around every step switch and the end of the schedule (a pause tick
   and a cut schedule too).
 
+The slice-6 file (``tests/data/torch_port_slice6_refs.npz``) holds the
+JAX outputs of ``tests/test_torch_runtime.py``: ``runtime/``, the JAX
+``ControllerManager`` + ``SimHardware`` + ``BalanceStandController``
+standing for 400 ticks, ``balance_update`` on five of its samples, and
+the single-leg and freeze controllers' torques.
+
     JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
-        [--file slice2|fd_qp|slice4|slice5|all]
+        [--file slice2|fd_qp|slice4|slice5|slice6|all]
 
 Takes about two minutes per file on a CPU, most of it XLA compilation and
 the eager kernel trace. The tests recompute each section live under
@@ -91,6 +96,7 @@ DEFAULT_OUT = os.path.join(DATA, "torch_port_slice2_refs.npz")
 FD_QP_OUT = os.path.join(DATA, "torch_port_fd_qp_refs.npz")
 SLICE4_OUT = os.path.join(DATA, "torch_port_slice4_refs.npz")
 SLICE5_OUT = os.path.join(DATA, "torch_port_slice5_refs.npz")
+SLICE6_OUT = os.path.join(DATA, "torch_port_slice6_refs.npz")
 CHIP_QPS = os.path.join(DATA, "torch_port_chip_qps.npz")
 
 TILE = 1024  # one (8, 128) tile of the JAX kernel trace
@@ -106,10 +112,12 @@ FD_ITERS = 15
 FD_N_RANDOM = 8
 # rows of the recorded chip QPs, in order: chip_smoke.py's --dump prefixes
 FD_CHIP_ROWS = {"chip_violators": "violators", "rollout_worst": "worst",
-                "articulated_worst": "art_worst", "sweep_worst": "sweep_worst"}
+                "articulated_worst": "art_worst", "sweep_worst": "sweep_worst",
+                "rollout25_worst": "rollout25_worst"}
 # the rows (one QP each) whose outcome is chaotic: the kernel trace also
 # runs on FD_ENSEMBLE - 1 copies with every entry moved by -1, 0 or +1 ulp
-FD_ENSEMBLE_ROWS = ("rollout_worst", "articulated_worst")
+FD_ENSEMBLE_ROWS = ("rollout_worst", "articulated_worst", "sweep_worst",
+                    "rollout25_worst")
 FD_ENSEMBLE = 64
 
 
@@ -1150,6 +1158,96 @@ def advance_references() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the runtime (balance tick, single-leg and freeze controllers,
+# the standing manager loop on the massless plant)
+# ---------------------------------------------------------------------------
+
+RT_TICKS = 400  # tests/test_runtime.py's standing run: 1 s at 400 Hz
+RT_BALANCE_TICKS = (0, 1, 5, 50, 399)  # samples balance_update is held on
+RT_HOLD_TICKS = (50, 51, 52, 53)  # samples the single-leg / freeze torques
+RT_LEG_OFFSET = np.array([0.05, 0.0, 0.05], np.float32)  # LF's task target
+
+
+def runtime_references() -> dict:
+    """``standing/``: the JAX ``ControllerManager`` + ``SimHardware`` +
+    ``BalanceStandController`` from the 0.4 m stance for RT_TICKS ticks:
+    each tick's sample (read at its start), commanded torques and the
+    controller's warm (x, z) after it, and the final sample.
+    ``balance/<tick>/``: ``balance_update`` on that tick's sample (cold,
+    15 iterations, full polish, on tick 0; warm from the previous tick's
+    (x, z), 8 iterations, light polish, on the others): the VMC wrench,
+    the formed problem, the QP's x, z and KKT, and the torques.
+    ``single_leg/``, ``freeze/``: those controllers started on the sample
+    of tick RT_HOLD_TICKS[0] (single leg: LF toward its start foot
+    position + RT_LEG_OFFSET) and updated on the RT_HOLD_TICKS samples."""
+    import jax
+
+    from quadruped_locomotion_tpu.control import force_distribution as fd
+    from quadruped_locomotion_tpu.control.balance_controller import balance_update
+    from quadruped_locomotion_tpu.control.vmc import compute_virtual_wrench
+    from quadruped_locomotion_tpu.model.kinematics import forward_kinematics
+    from quadruped_locomotion_tpu.runtime import hal, manager as mgr
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    model = RobotModel.simpledog()
+    hw = hal.SimHardware(model, height=0.4)
+    m = mgr.ControllerManager(hw, model)
+    bal = mgr.BalanceStandController(model)
+    m.register(bal)
+    m.switch(bal.name)
+    rec = {k: [] for k in ("samples", "tau", "warm_x", "warm_z")}
+    for _ in range(RT_TICKS):
+        sample = m.tick()
+        rec["samples"].append(sample.pack())
+        rec["tau"].append(np.asarray(m._last_tau, np.float32))
+        rec["warm_x"].append(np.asarray(bal._warm[0]))
+        rec["warm_z"].append(np.asarray(bal._warm[1]))
+    out = {f"standing/{k}": np.stack(v) for k, v in rec.items()}
+    out["standing/final"] = hw.read_packed()
+    out.update({f"standing/target/{k}": v
+                for k, v in _flatten(_tree(bal._target)).items()})
+
+    @jax.jit
+    def tick(vec, warm_x, warm_z, cold):
+        state = mgr._robot_state_from_vec(vec)
+        vf, vt = compute_virtual_wrench(model, bal.gains, state, bal._target)
+        problem = fd.build_qp(model, bal.cfd, state, vf, vt)
+        def solve(warm, iters, polish):
+            return balance_update(model, bal.gains, bal.cfd, state,
+                                  bal._target, qp_iters=iters, warm=warm,
+                                  polish=polish)
+        tau, diag = jax.lax.cond(
+            cold, lambda: solve(None, 15, "full"),
+            lambda: solve((warm_x, warm_z), 8, "light"))
+        sol = diag.distribution.qp_solution
+        return dict(vf=vf, vt=vt, A=problem[0], b=problem[1], S=problem[2],
+                    W=problem[3], D=problem[4], d=problem[5], x=sol.x,
+                    z=sol.z, kkt=sol.kkt_error, tau=tau)
+
+    samples = out["standing/samples"]
+    for t in RT_BALANCE_TICKS:
+        prev = max(t - 1, 0)
+        res = tick(samples[t], out["standing/warm_x"][prev],
+                   out["standing/warm_z"][prev], t == 0)
+        out.update({f"balance/{t}/{k}": np.asarray(v) for k, v in res.items()})
+
+    start = hal.RobotSample.unpack(samples[RT_HOLD_TICKS[0]])
+    leg = mgr.SingleLegController(model, legs=(0,))
+    leg.start(start)
+    p_des = np.asarray(forward_kinematics(model, start.q)).copy()
+    p_des[0] += RT_LEG_OFFSET
+    leg.set_targets(p_des)
+    frz = mgr.FreezeController(model)
+    frz.start(start)
+    for name, ctrl in (("single_leg", leg), ("freeze", frz)):
+        out[f"{name}/tau"] = np.stack([
+            ctrl.update(hal.RobotSample.unpack(samples[t]))
+            for t in RT_HOLD_TICKS])
+    out["single_leg/p_des"] = p_des
+    return out
+
+
 SECTIONS = {"qp": qp_references, "headline": headline_references,
             "articulated": articulated_references,
             "fd_qp": fd_qp_references, "terrain": terrain_references,
@@ -1157,13 +1255,15 @@ SECTIONS = {"qp": qp_references, "headline": headline_references,
             "sweep": sweep_references, "ekf": ekf_references,
             "footstep": footstep_references, "pid": pid_references,
             "support": support_references, "pose": pose_references,
-            "schedule": schedule_references, "advance": advance_references}
+            "schedule": schedule_references, "advance": advance_references,
+            "runtime": runtime_references}
 FILES = {"slice2": (DEFAULT_OUT, ("qp", "headline", "articulated")),
          "fd_qp": (FD_QP_OUT, ("fd_qp",)),
          "slice4": (SLICE4_OUT, ("terrain", "gait_b6", "gait_b4", "sweep",
                                  "ekf")),
          "slice5": (SLICE5_OUT, ("footstep", "pid", "support", "pose",
-                                 "schedule", "advance"))}
+                                 "schedule", "advance")),
+         "slice6": (SLICE6_OUT, ("runtime",))}
 
 
 def make_references(sections) -> dict:

@@ -124,12 +124,17 @@ def _rel_gap(a, b):
 
 GATES = {"stance": (1e-4, 5e-3), "random": (1e-5, 1e-4)}
 CHIP_KEYS = {"rollout_worst": "worst", "articulated_worst": "art_worst",
-             "sweep_worst": "sweep_worst"}
+             "sweep_worst": "sweep_worst",
+             "rollout25_worst": "rollout25_worst"}
+# Worst QPs on which the unperturbed kernel trace converges (KKT < 1e-6);
+# on the others it fails (KKT > 1).
+TRACE_CONVERGES = {"rollout25_worst"}
 # The (rows, solver) cases whose answer on the committed recording misses
 # the unperturbed kernel trace's window (PERF.md §6 lists the readings):
 # held against the trace's ulp ensemble instead. Every other case is held
 # to the unperturbed run.
-ENSEMBLE_CASES = {("rollout_worst", "kernel"), ("rollout_worst", "plain")}
+ENSEMBLE_CASES = {("rollout_worst", "kernel"), ("rollout_worst", "plain"),
+                  ("sweep_worst", "plain")}
 
 
 def check_plain_objective(problems, solutions, rows, reference):
@@ -167,9 +172,10 @@ def check_violation_envelope(problems, solutions, chip, solver):
 
 def check_worst_qp(problems, solutions, chip, solver, rows):
     """A rollout's worst-KKT QP, where the JAX kernel trace itself fails
-    (KKT > 1). The kernel's recorded result (or the plain version's) must
-    reach the unperturbed trace's KKT within a factor of 2 and its
-    objective within 1e-2 (relative).
+    (KKT > 1; or, for the rows of ``TRACE_CONVERGES``, where it converges).
+    The kernel's recorded result (or the plain version's) must reach the
+    unperturbed trace's KKT within a factor of 2 and its objective within
+    1e-2 (relative).
 
     Where the trace ends on such a QP is chaotic: with each input entry
     moved by at most one ulp, its KKT ranges over ~0.006-5.6 on the
@@ -180,7 +186,7 @@ def check_worst_qp(problems, solutions, chip, solver, rows):
     must itself lie within a factor of 3 of member 0's KKT."""
     sl = problems["rows"][rows]
     k0 = solutions["emulated_kkt"][sl][0]
-    assert k0 > 1.0
+    assert k0 < 1e-6 if rows in TRACE_CONVERGES else k0 > 1.0
     if solver == "kernel":
         key = CHIP_KEYS[rows]
         x, k = chip[f"{key}_x"], float(chip[f"{key}_kkt"])
@@ -249,15 +255,46 @@ def test_articulated_worst_qp_matches_reference(problems, solutions, chip,
 def test_sweep_worst_qp_matches_reference(problems, solutions, chip, solver):
     """The same for the QP with the largest KKT residual of the smoke
     run's 4096 x 100-tick config-5 sweep (per-scenario terrain, trot/pace
-    mix): it ends outside the friction cone under the JAX kernel trace
-    too, and the kernel and the plain version end where the trace ends.
-    The recorded QP is the worst of the sweep as it ran before footstep
-    distances took the CPU backends' rounding (``footstep.fma_norm``); on
-    the worst QP of the sweep as it runs now the kernel meets the trace
-    (KKT 6.96 against 7.23), but the plain version on the CPU ends at
-    0.13, outside this window, so that recording is not held here
-    (PERF.md §7)."""
+    mix; tick 44, scenario 24): it ends ~75 N outside the friction cone
+    under the JAX kernel trace too (KKT 7.23). The kernel meets the
+    unperturbed trace (6.96). The plain version follows the trace's
+    operations in the trace's order but rounds rsqrt as PyTorch does, and
+    the trace's first rsqrt (the start point's factor, column 0) already
+    rounds differently: it ends at 11.53, where a member of the trace's
+    ulp ensemble ends (11.45, objective within 1.7e-3)."""
     check_worst_qp(problems, solutions, chip, solver, "sweep_worst")
+
+
+@pytest.mark.parametrize("solver", ["plain"])
+def test_rollout25_worst_qp_matches_reference(problems, solutions, chip,
+                                              solver):
+    """The worst QP of the smoke run's massless rollout at its default
+    depth, 4096 x 25 ticks (tick 1, substep 7, scenario 2818). The
+    unperturbed kernel trace converges on it (KKT 1.2e-7), and so does the
+    plain version (2.0e-7)."""
+    check_worst_qp(problems, solutions, chip, solver, "rollout25_worst")
+
+
+def test_rollout25_worst_kernel_ends_in_the_reference_ensemble(problems,
+                                                               solutions,
+                                                               chip):
+    """The CUDA kernel's recorded answer on that QP (KKT 0.247, objective
+    2.1 % above the optimum) does not meet ``check_worst_qp``: the
+    unperturbed trace converges there. The reference is chaotic on this
+    QP: with each input entry moved by at most one ulp, a third or more of
+    the trace's ulp ensemble ends above 1e-3, clustered at the kernel's
+    KKT, and the kernel's KKT and objective lie within ``check_worst_qp``'s
+    window (KKT within x2, objective within 1e-2) of such members. This
+    holds what the kernel does; ROADMAP.md §3 keeps the fault open."""
+    rows = "rollout25_worst"
+    ens_kkt, ens_x = solutions["ensemble"][rows]
+    assert ens_kkt[0] < 1e-6 and (ens_kkt > 1e-3).mean() > 1 / 3
+    k = float(chip["rollout25_worst_kkt"])
+    obj = _objective(problems, chip["rollout25_worst_x"][None], rows)
+    gap = np.array([_rel_gap(obj, _objective(problems, e[None], rows))[0]
+                    for e in ens_x])
+    near = (0.5 * ens_kkt < k) & (k < 2.0 * ens_kkt) & (gap < 1e-2)
+    assert near.sum() >= 8, (k, ens_kkt, gap)
 
 
 def test_committed_problems_hold_the_recorded_qps(problems, chip):

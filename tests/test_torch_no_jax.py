@@ -1,6 +1,7 @@
-"""The PyTorch port and its GPU smoke script import neither JAX nor the
-JAX package: every ``.py`` file of ``quadruped_locomotion_tpu_torch/``
-and ``chip_smoke.py`` is parsed and its imports checked."""
+"""The PyTorch port, its GPU smoke script and its realtime measurement
+script import neither JAX nor the JAX package: every ``.py`` file of
+``quadruped_locomotion_tpu_torch/``, ``chip_smoke.py`` and
+``scripts/measure_realtime_torch.py`` is parsed and its imports checked."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "quadruped_locomotion_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "measure_realtime_torch.py"]
 BANNED = ("jax", "jaxlib", "flax", "quadruped_locomotion_tpu")
 
 
