@@ -55,9 +55,11 @@ Phases, each of which raises (exit code 1) when a gate fails:
    the plain QP within 1e-3 m of the kernel run; the rollout's worst-KKT
    QP, re-solved alone, gives the kernel's in-rollout answer again.
 8. Latency at B = 1 (bench.py's ``_latency_measure``, through the bench
-   entry's ``latency_measure``): 25-tick chunks through the kernel with
-   plant "none" and "articulated", and 5 one-tick dispatches; per-control-
-   tick p50 / p99 ms, recorded, not gated (4 launches per planner tick).
+   entry's ``latency_measure``): ``--latency-chunks`` 25-tick chunks
+   (default 2, cut from 3 to make room for phases 13-14) through the
+   kernel with plant "none" and "articulated", and 5 one-tick dispatches;
+   per-control-tick p50 / p99 ms, recorded, not gated (4 launches per
+   planner tick).
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
@@ -1304,7 +1306,7 @@ def main() -> int:
                          "check after a kernel change uses fewer)")
     ap.add_argument("--art-ticks", type=int, default=50,
                     help="planner ticks of the articulated rollout")
-    ap.add_argument("--latency-chunks", type=int, default=3,
+    ap.add_argument("--latency-chunks", type=int, default=2,
                     help="timed 25-tick chunks per plant at B = 1")
     ap.add_argument("--sweep-ticks", type=int, default=100,
                     help="planner ticks of the config-5 sweep")
