@@ -36,7 +36,11 @@ def resolve_device(device=None) -> torch.device:
 
 @functools.lru_cache(maxsize=None)
 def _const(values, dtype, device) -> torch.Tensor:
-    return torch.tensor(values, dtype=dtype, device=device)
+    # made outside any torch.func transform that may be running (the leg
+    # dynamics call this under jacfwd and vmap): a tensor made inside one
+    # belongs to its level, and the cache hands it to later calls at others
+    with torch._C._DisableFuncTorch():
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def const(values, like: torch.Tensor) -> torch.Tensor:

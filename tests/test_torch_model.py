@@ -168,3 +168,23 @@ def test_rotations(name):
         np.testing.assert_allclose(diff, 0.0, atol=1e-5)
     else:
         _close(port, ref)
+
+
+def test_constants_first_made_inside_a_transform():
+    """``types.const`` caches the tick paths' constants (so that a tick can
+    be captured as a CUDA graph). A constant first made inside a torch.func
+    transform (the leg dynamics' jacfwd under vmap) must come out as a plain
+    tensor that later calls, inside or outside transforms, can use: the
+    same values as a fresh cache."""
+    model = ttypes.RobotModel.simpledog("cpu")
+    q = torch.tensor([[0.1, 0.7, -1.3], [-0.2, -0.6, 1.2],
+                      [0.05, 0.8, -1.4], [0.0, -0.5, 1.1]])
+    qd = torch.linspace(-1.0, 1.0, 12).reshape(4, 3)
+    g = torch.tensor([0.0, 0.0, -9.8])
+    ttypes._const.cache_clear()
+    first = tdyn.leg_inverse_dynamics(model, q, qd, torch.zeros_like(qd), g)
+    again = tdyn.leg_inverse_dynamics(model, q, qd, torch.zeros_like(qd), g)
+    jac = tkin.jacobians(model, q)
+    ttypes._const.cache_clear()
+    np.testing.assert_array_equal(first.numpy(), again.numpy())
+    np.testing.assert_array_equal(jac.numpy(), tkin.jacobians(model, q).numpy())
