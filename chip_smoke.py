@@ -50,20 +50,22 @@ Phases, each of which raises (exit code 1) when a gate fails:
    end-to-end gap against the "plain" backend is printed.
 7. The articulated main path: ``rollout(plant="articulated")`` (the
    default plant) over B = 4096 trot scenarios for ``--art-ticks``
-   planner ticks (default 50). Gates: 4 launches per tick, finite
+   planner ticks (default 25, cut from 50 to fit phases 13-14 in the time
+   limit). Gates: 4 launches per tick, finite
    telemetry, upright fraction >= 0.99 at the end, a 5-tick run through
    the plain QP within 1e-3 m of the kernel run; the rollout's worst-KKT
    QP, re-solved alone, gives the kernel's in-rollout answer again.
 8. Latency at B = 1 (bench.py's ``_latency_measure``, through the bench
    entry's ``latency_measure``): ``--latency-chunks`` 25-tick chunks
-   (default 2, cut from 3 to make room for phases 13-14) through the
+   (default 1, cut from 3 to make room for phases 13-14) through the
    kernel with plant "none" and "articulated", and 5 one-tick dispatches;
    per-control-tick p50 / p99 ms, recorded, not gated (4 launches per
    planner tick).
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
-   planner ticks (default 100) after a one-tick warm-up, with the
+   planner ticks (default 50, cut from 100 to make room for phases 13-14;
+   the worst QP, at tick 44, is inside) after a one-tick warm-up, with the
    worst-QP and foothold taps inside the timed window. Gates: exactly 4
    kernel launches per tick (the warm-up's included), finite telemetry,
    upright fraction (base over the local ground > 0.25 m) >= 0.9
@@ -74,10 +76,11 @@ Phases, each of which raises (exit code 1) when a gate fails:
    the KKT tail and the share of scenarios whose foothold search picked a
    cell other than the nominal foothold's own.
 10. The EKF-estimated closed loop (``rollout_estimated``) at B = 1024 for
-   ``--est-ticks`` ticks (default 100), trot at 0.2 m/s, realistic
+   ``--est-ticks`` ticks (default 70, cut from 100 to make room for
+   phases 13-14), trot at 0.2 m/s, realistic
    sensors from a seeded generator on the card. Gates (the bounds of
    tests/test_estimated_loop.py): finite telemetry, base height in
-   (0.3, 0.5) m throughout, median velocity error over ticks 50-100
+   (0.3, 0.5) m throughout, median velocity error from tick 50 on
    < 0.12 m/s, every scenario's final position error < 0.25 m, and no
    kernel launch (its QP is the generic IPM, as in the JAX package).
 11. The kinematic preview of the 13 bundled motion scripts, each
@@ -92,7 +95,8 @@ Phases, each of which raises (exit code 1) when a gate fails:
 12. The closed loop of scripted motion at B = 1 (``run_schedule``, the
    generic QP): standup from tick 0 for ``--script-ticks`` ticks
    (default 40) through the registry and ``init_script_state``, then
-   20 ticks of each JAX golden window from its committed ScriptState
+   10 ticks (cut from 20; the trot_test switch is at its sixth) of each
+   JAX golden window from its committed ScriptState
    (``tests/data/torch_port_script_golden.npz``): trot_test across a
    touchdown and a lift-off, change_to_spot with RH under the joint
    PID. Gates: finite; step index and desired support equal to JAX's
@@ -899,7 +903,7 @@ PREVIEW_GOLDEN = DATA / "torch_port_preview_golden.npz"
 SCRIPT_GOLDEN = DATA / "torch_port_script_golden.npz"
 PREVIEW_TOL = 1e-5  # m (base, feet) and quaternion units, against JAX
 SCRIPT_TOL = 1e-4  # m, base positions against the JAX goldens
-WINDOW_TICKS = 20  # ticks of each closed-loop golden window
+WINDOW_TICKS = 10  # ticks run of each 20-tick closed-loop golden window
 
 
 def device_ops(fn):
@@ -1304,13 +1308,13 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=25,
                     help="planner ticks of the massless rollout (a quick "
                          "check after a kernel change uses fewer)")
-    ap.add_argument("--art-ticks", type=int, default=50,
+    ap.add_argument("--art-ticks", type=int, default=25,
                     help="planner ticks of the articulated rollout")
-    ap.add_argument("--latency-chunks", type=int, default=2,
+    ap.add_argument("--latency-chunks", type=int, default=1,
                     help="timed 25-tick chunks per plant at B = 1")
-    ap.add_argument("--sweep-ticks", type=int, default=100,
+    ap.add_argument("--sweep-ticks", type=int, default=50,
                     help="planner ticks of the config-5 sweep")
-    ap.add_argument("--est-ticks", type=int, default=100,
+    ap.add_argument("--est-ticks", type=int, default=70,
                     help="planner ticks of the estimated loop (>= 51)")
     ap.add_argument("--script-ticks", type=int, default=40,
                     help="closed-loop ticks of standup from tick 0 "
