@@ -50,22 +50,19 @@ Phases, each of which raises (exit code 1) when a gate fails:
    end-to-end gap against the "plain" backend is printed.
 7. The articulated main path: ``rollout(plant="articulated")`` (the
    default plant) over B = 4096 trot scenarios for ``--art-ticks``
-   planner ticks (default 25, cut from 50 to fit phases 13-14 in the time
-   limit). Gates: 4 launches per tick, finite
+   planner ticks (default 50). Gates: 4 launches per tick, finite
    telemetry, upright fraction >= 0.99 at the end, a 5-tick run through
    the plain QP within 1e-3 m of the kernel run; the rollout's worst-KKT
    QP, re-solved alone, gives the kernel's in-rollout answer again.
 8. Latency at B = 1 (bench.py's ``_latency_measure``, through the bench
    entry's ``latency_measure``): ``--latency-chunks`` 25-tick chunks
-   (default 1, cut from 3 to make room for phases 13-14) through the
-   kernel with plant "none" and "articulated", and 5 one-tick dispatches;
-   per-control-tick p50 / p99 ms, recorded, not gated (4 launches per
-   planner tick).
+   (default 3) through the kernel with plant "none" and "articulated",
+   and 5 one-tick dispatches; per-control-tick p50 / p99 ms, recorded,
+   not gated (4 launches per planner tick).
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
-   planner ticks (default 50, cut from 100 to make room for phases 13-14;
-   the worst QP, at tick 44, is inside) after a one-tick warm-up, with the
+   planner ticks (default 100) after a one-tick warm-up, with the
    worst-QP and foothold taps inside the timed window. Gates: exactly 4
    kernel launches per tick (the warm-up's included), finite telemetry,
    upright fraction (base over the local ground > 0.25 m) >= 0.9
@@ -76,11 +73,10 @@ Phases, each of which raises (exit code 1) when a gate fails:
    the KKT tail and the share of scenarios whose foothold search picked a
    cell other than the nominal foothold's own.
 10. The EKF-estimated closed loop (``rollout_estimated``) at B = 1024 for
-   ``--est-ticks`` ticks (default 70, cut from 100 to make room for
-   phases 13-14), trot at 0.2 m/s, realistic
+   ``--est-ticks`` ticks (default 100), trot at 0.2 m/s, realistic
    sensors from a seeded generator on the card. Gates (the bounds of
    tests/test_estimated_loop.py): finite telemetry, base height in
-   (0.3, 0.5) m throughout, median velocity error from tick 50 on
+   (0.3, 0.5) m throughout, median velocity error over ticks 50-100
    < 0.12 m/s, every scenario's final position error < 0.25 m, and no
    kernel launch (its QP is the generic IPM, as in the JAX package).
 11. The kinematic preview of the 13 bundled motion scripts, each
@@ -95,8 +91,7 @@ Phases, each of which raises (exit code 1) when a gate fails:
 12. The closed loop of scripted motion at B = 1 (``run_schedule``, the
    generic QP): standup from tick 0 for ``--script-ticks`` ticks
    (default 40) through the registry and ``init_script_state``, then
-   10 ticks (cut from 20; the trot_test switch is at its sixth) of each
-   JAX golden window from its committed ScriptState
+   20 ticks of each JAX golden window from its committed ScriptState
    (``tests/data/torch_port_script_golden.npz``): trot_test across a
    touchdown and a lift-off, change_to_spot with RH under the joint
    PID. Gates: finite; step index and desired support equal to JAX's
@@ -116,17 +111,23 @@ Phases, each of which raises (exit code 1) when a gate fails:
    base height within 0.02 m of 0.4 and speed < 0.2 m/s after 400 ticks
    (tests/test_runtime.py's bounds), finite torques, no tick kept the
    previous torques, the replayed ticks' torques equal the eager tick's
-   on the same samples bit for bit, zero torque from the e-stop on, no
-   kernel launch. Prints ms per manager tick (replayed), per eager and
-   replayed balance tick and per bus step, the device ops of a cold tick,
-   a warm tick and a bus step, and the busy share, beside the 2.5 ms
-   budget.
-14. The two-process realtime loop (``realtime_bench.measure``), 400 Hz for
-   ``--rt-seconds`` nominal seconds (default 2), controller and bus on the
-   card. Gates: the bus ran and reported, the controller ticked, the
-   e-stop round trip was observed, the rings are gone. Prints the rates,
-   jitter and e-stop latency beside tests/test_realtime_bench.py's bounds
-   (not gated).
+   on the same samples bit for bit (the cold tick and the first 40 warm
+   ticks), zero torque from the e-stop on, no kernel launch. Prints ms
+   per manager tick (replayed), per eager and replayed balance tick and
+   per bus step, the device ops of a cold tick, a warm tick and a bus
+   step, and the busy share, beside the 2.5 ms budget.
+14. The two-process realtime loop (``realtime_bench.measure``), controller
+   and bus on the card, twice: at 400 Hz for ``--rt-seconds`` nominal
+   seconds (default 2), and paced at 40 Hz with the plant still stepping
+   2.5 ms per bus tick (400 ticks). Gates, both runs: the bus ran and
+   reported, the controller ticked, the e-stop round trip was observed,
+   the rings are gone; the paced run: no tick kept the previous torques,
+   every sample read was finite and the last one before the e-stop
+   within phase 13's standing bounds. Prints the rates, jitter and e-stop
+   latency beside tests/test_realtime_bench.py's bounds, the ticks that
+   kept the previous torques and the robot's state (at 400 Hz each
+   torque reaches the plant a bus tick late, and the balance controller
+   does not stand with that delay: recorded, not gated).
 
 Then ``python -m quadruped_locomotion_tpu_torch.bench --kernel-only`` runs
 as a subprocess: its last line must carry bench.py's headline keys and
@@ -148,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -903,7 +905,7 @@ PREVIEW_GOLDEN = DATA / "torch_port_preview_golden.npz"
 SCRIPT_GOLDEN = DATA / "torch_port_script_golden.npz"
 PREVIEW_TOL = 1e-5  # m (base, feet) and quaternion units, against JAX
 SCRIPT_TOL = 1e-4  # m, base positions against the JAX goldens
-WINDOW_TICKS = 10  # ticks run of each 20-tick closed-loop golden window
+WINDOW_TICKS = 20  # ticks of each closed-loop golden window
 
 
 def device_ops(fn):
@@ -1118,9 +1120,13 @@ def check_scripted(standup_ticks: int, device) -> dict:
 # --------------------------------------------------------------------------
 
 MANAGER_TICKS = 400  # 1 s at 400 Hz (tests/test_runtime.py's standing run)
+EAGER_TICKS = 41  # the cold tick and 40 warm ones, rerun eagerly
+BUSY_TICKS = 5  # replayed manager ticks under the profiler
 BUDGET_MS = 2.5  # the 400 Hz reference loop
 RT_BOUNDS = dict(bus_rate_hz=300.0, bus_jitter_p99=0.006,
                  controller_rate_hz=120.0, estop_latency_s=0.05)
+RT_PACED_HZ = 40.0  # a bus period the card's controller answers within
+RT_PACED_TICKS = 400  # nominal ticks of the paced run (e-stop after 320)
 
 
 def _ms_stats(ms) -> dict:
@@ -1169,8 +1175,9 @@ def check_manager(device) -> dict:
                             bus=hw._tick.replays),
                manager_tick=_ms_stats(tick_ms))
 
-    # the same samples through the eager tick (the captured function)
-    vecs = torch.as_tensor(np.stack(samples), device=device)
+    # the first EAGER_TICKS samples through the eager tick (the captured
+    # function): the cold tick and the warm chain it seeds
+    vecs = torch.as_tensor(np.stack(samples[:EAGER_TICKS]), device=device)
     eager, eager_ms, warm = [], [], None
     for v in vecs:
         torch.cuda.synchronize()
@@ -1182,8 +1189,10 @@ def check_manager(device) -> dict:
         eager.append(tau.cpu().numpy())
         eager_ms.append((time.perf_counter() - t0) * 1e3)
     eager = np.stack(eager)
-    res.update(eager_equal=bool(np.array_equal(eager, taus)),
-               eager_max_abs_diff=float(np.abs(eager - taus).max()),
+    res.update(eager_ticks=EAGER_TICKS,
+               eager_equal=bool(np.array_equal(eager, taus[:EAGER_TICKS])),
+               eager_max_abs_diff=float(
+                   np.abs(eager - taus[:EAGER_TICKS]).max()),
                eager_tick=_ms_stats(eager_ms[1:]))
 
     # replayed controller and bus ticks alone, and device ops of the eager
@@ -1205,7 +1214,8 @@ def check_manager(device) -> dict:
         bal.model, bal.gains, bal.cfd, v, bal._target, warm, bal._qp_iters,
         mgr.WARM_POLISH))
     _, bus_ops, _, _ = device_ops(hw._step_pack)
-    _, _, rep_busy, rep_wall = device_ops(lambda: [m.tick() for _ in range(20)])
+    _, _, rep_busy, rep_wall = device_ops(
+        lambda: [m.tick() for _ in range(BUSY_TICKS)])
     res.update(controller_replay=_ms_stats(ctrl_ms), bus_replay=_ms_stats(bus_ms),
                ops_cold_tick=cold_ops, ops_warm_tick=warm_ops,
                ops_bus_step=bus_ops, eager_cold_busy=cold_busy / cold_wall,
@@ -1247,22 +1257,21 @@ def check_manager(device) -> dict:
     return res
 
 
-def check_realtime(duration_s: float) -> dict:
-    """Phase 14: the two-process loop at 400 Hz with the controller and the
-    bus on the card. Gates: the bus ran and reported, the controller
-    ticked, the e-stop round trip was observed, the rings are gone. The
-    JAX test's rate bounds are printed beside the figures, not gated."""
+def _run_loop(name: str, **kw) -> dict:
+    """One ``realtime_bench.measure`` run with the controller and the bus
+    on the card; fails unless the bus ran and reported, the controller
+    ticked, the e-stop round trip was observed and the rings are gone."""
     from quadruped_locomotion_tpu_torch.runtime import realtime_bench as rb
 
     t0 = time.perf_counter()
-    rep = rb.measure(duration_s=duration_s, rate_hz=400.0,
-                     prefix="/qlt_torch_smoke", device="cuda",
-                     bus_device="cuda")
+    rep = rb.measure(prefix=f"/qlt_torch_smoke_{os.getpid()}", device="cuda",
+                     bus_device="cuda", **kw)
     rep["wall_s"] = time.perf_counter() - t0
-    leftover = [p.name for p in Path("/dev/shm").glob("qlt_torch_smoke*")]
+    leftover = [p.name for p in Path("/dev/shm").glob(
+        rep["prefix"].strip("/") + "_*")]
     rep["bounds"] = {k: dict(measured=rep.get(k), bound=b)
                      for k, b in RT_BOUNDS.items()}
-    log("realtime two-process loop on the card: " + json.dumps(rep))
+    log(f"realtime two-process loop on the card, {name}: " + json.dumps(rep))
     if not rep.get("bus_ticks") or "bus_error" in rep:
         raise AssertionError(f"the bus did not run: {rep}")
     if rep["controller_ticks"] < 10:
@@ -1272,6 +1281,35 @@ def check_realtime(duration_s: float) -> dict:
     if leftover:
         raise AssertionError(f"rings left behind: {leftover}")
     return rep
+
+
+def check_realtime(duration_s: float) -> dict:
+    """Phase 14: the two-process loop with the controller and the bus on
+    the card, twice.
+
+    In real time (400 Hz, ``duration_s`` nominal seconds) the JAX test's
+    rate bounds are printed beside the figures, not gated, and so are the
+    robot's state and the ticks that kept the previous torques: a bus
+    step there takes longer than the controller's answer, so each torque
+    reaches the plant one bus tick late, and the reference's balance
+    controller does not stand with that delay (PERF.md §7).
+
+    With the robot's clock slowed (the bus paced at ``RT_PACED_HZ``, the
+    plant still stepping 2.5 ms per tick) the controller answers each
+    sample before the next bus tick. Gates there, besides the first run's:
+    no tick kept the previous torques, every sample was finite, and the
+    last one before the e-stop is within phase 13's standing bounds."""
+    real = _run_loop("400 Hz", duration_s=duration_s, rate_hz=400.0)
+    paced = _run_loop(f"paced at {RT_PACED_HZ:g} Hz",
+                      duration_s=RT_PACED_TICKS / RT_PACED_HZ,
+                      rate_hz=RT_PACED_HZ, plant_dt=1.0 / 400.0)
+    if paced["kept_previous"]:
+        raise AssertionError(f"ticks kept the previous torques: {paced}")
+    if not (paced["samples_finite"]
+            and abs(paced["height_before_estop"] - 0.4) < 0.02
+            and paced["speed_before_estop"] < 0.2):
+        raise AssertionError(f"the robot did not stand: {paced}")
+    return dict(real=real, paced=paced)
 
 
 BENCH_HEADLINE_KEYS = (
@@ -1308,13 +1346,13 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=25,
                     help="planner ticks of the massless rollout (a quick "
                          "check after a kernel change uses fewer)")
-    ap.add_argument("--art-ticks", type=int, default=25,
+    ap.add_argument("--art-ticks", type=int, default=50,
                     help="planner ticks of the articulated rollout")
-    ap.add_argument("--latency-chunks", type=int, default=1,
+    ap.add_argument("--latency-chunks", type=int, default=3,
                     help="timed 25-tick chunks per plant at B = 1")
-    ap.add_argument("--sweep-ticks", type=int, default=50,
+    ap.add_argument("--sweep-ticks", type=int, default=100,
                     help="planner ticks of the config-5 sweep")
-    ap.add_argument("--est-ticks", type=int, default=70,
+    ap.add_argument("--est-ticks", type=int, default=100,
                     help="planner ticks of the estimated loop (>= 51)")
     ap.add_argument("--script-ticks", type=int, default=40,
                     help="closed-loop ticks of standup from tick 0 "

@@ -282,6 +282,7 @@ class ControllerManager:
         self._limit = float(model.torque_limit)
         self.ticks = 0
         self.kept_previous = 0  # ticks whose update raised or was not finite
+        self.first_failure: dict | None = None  # the first such tick's record
 
     def register(self, ctrl: Controller) -> None:
         self.controllers[ctrl.name] = ctrl
@@ -306,14 +307,22 @@ class ControllerManager:
         else:
             try:
                 tau = self.active.update(sample)
-                if not np.isfinite(tau).all():
-                    raise FloatingPointError("non-finite torques")
+                bad = ~np.isfinite(tau)
+                if bad.any():
+                    raise FloatingPointError(
+                        f"non-finite torques at (leg, joint) "
+                        f"{np.argwhere(bad).tolist()}")
                 self._last_tau = tau
-            except Exception:
+            except Exception as exc:
                 # keep the previous torques (the reference's balance
                 # controller on a failed update)
                 tau = self._last_tau
                 self.kept_previous += 1
+                if self.first_failure is None:
+                    self.first_failure = dict(
+                        tick=self.ticks, controller=self.active.name,
+                        error=f"{type(exc).__name__}: {exc}",
+                        sample_finite=bool(np.isfinite(sample.pack()).all()))
         tau = np.clip(tau, -self._limit, self._limit)
         self.hw.write(tau)
         self.ticks += 1

@@ -16,7 +16,12 @@ Both devices are explicit and default to the card; nothing switches
 device on its own. :func:`measure` returns the controller's rate and
 inter-tick jitter (deviation from the nominal period), the bus's, and
 the e-stop round trip: wall time from the controller's ``estop()`` to
-the first sample it reads with the e-stop latch set.
+the first sample it reads with the e-stop latch set; the bus counts its
+ticks that found no new command and applied the previous one again
+(``bus_held_ticks``). It also reports the
+robot's state: the ticks that kept the previous torques and the first
+such tick's record, whether every sample read was finite, and the base
+height and speed of the last sample before the e-stop.
 
 Run it through ``scripts/measure_realtime_torch.py``: under ``python -m``
 the ``spawn`` children re-import the entry module as ``__mp_main__``,
@@ -33,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-BUS_PREFIX = "/qlt_torch_rtbench"
+BUS_PREFIX = "/qlt_torch_rtbench"  # rings: this + "_<pid>" + "_state" / "_cmd"
 FIRST_COMMAND_WINDOW_S = 600.0  # the bus waits this long for the controller
 
 
@@ -102,8 +107,9 @@ def _jitter(dt: np.ndarray, period: float, prefix: str) -> dict:
 
 
 def bus_main(prefix: str, rate_hz: float, max_ticks: int, stats_q,
-             device: str) -> None:
-    """The robot bus process (spawn target)."""
+             device: str, plant_dt: float | None = None) -> None:
+    """The robot bus process (spawn target): paced at ``rate_hz``, each
+    tick steps the plant by ``plant_dt`` (default ``1 / rate_hz``)."""
     torch.set_num_threads(1)  # a 12-DoF plant gains nothing from a pool
     from ..types import RobotModel, full_f32_matmuls
     from . import hal
@@ -112,8 +118,8 @@ def bus_main(prefix: str, rate_hz: float, max_ticks: int, stats_q,
     full_f32_matmuls()
     state_ring = ShmRing.open(prefix + "_state")
     cmd_ring = ShmRing.open(prefix + "_cmd")
-    robot = hal.SimHardware(RobotModel.simpledog(device), dt=1.0 / rate_hz,
-                            device=device)
+    robot = hal.SimHardware(RobotModel.simpledog(device),
+                            dt=plant_dt or 1.0 / rate_hz, device=device)
     # liveness first, then the first write, which builds (and on the card
     # captures) the bus tick
     state_ring.push(robot.read_packed())
@@ -127,6 +133,7 @@ def bus_main(prefix: str, rate_hz: float, max_ticks: int, stats_q,
     tick_times = []
     estop_seen_t = None
     step_s = []
+    held = 0  # ticks before the e-stop that found no new command
 
     # the paced run starts when the controller publishes its first command
     deadline = time.monotonic() + FIRST_COMMAND_WINDOW_S
@@ -160,6 +167,8 @@ def bus_main(prefix: str, rate_hz: float, max_ticks: int, stats_q,
                 estopped = True
                 estop_seen_t = time.perf_counter()
                 robot.estop()  # zero torque + latch the flag
+        elif not estopped:
+            held += 1
         if estopped:
             tau = np.zeros((4, 3), np.float32)
         t0 = time.perf_counter()
@@ -182,6 +191,7 @@ def bus_main(prefix: str, rate_hz: float, max_ticks: int, stats_q,
         stats = {"bus_ticks": len(tick_times),
                  "bus_rate_hz": float(1.0 / dt.mean()),
                  "bus_step_ms_p50": float(np.percentile(step_s, 50) * 1e3),
+                 "bus_held_ticks": held,
                  "bus_estopped": estopped}
         stats.update(_jitter(dt, period, "bus_"))
         stats_q.put(stats)
@@ -190,13 +200,22 @@ def bus_main(prefix: str, rate_hz: float, max_ticks: int, stats_q,
 
 
 def measure(duration_s: float = 4.0, rate_hz: float = 400.0,
-            estop_at_s: float | None = None, prefix: str = BUS_PREFIX,
-            device=None, bus_device=None) -> dict:
+            estop_at_s: float | None = None, prefix: str | None = None,
+            device=None, bus_device=None,
+            plant_dt: float | None = None) -> dict:
     """Run the two-process loop for ``duration_s`` of controller ticks at
     ``rate_hz`` and return the timing report. ``estop_at_s`` (default 80 %
     of the run) triggers the controller-side e-stop. ``device`` and
     ``bus_device`` place the controller and the plant (default CUDA for
-    both; where CUDA is absent a default raises)."""
+    both; where CUDA is absent a default raises). ``prefix`` names the
+    two rings (default ``BUS_PREFIX`` and this process's id, so that two
+    runs on one machine never share a ring); the report carries it.
+
+    ``plant_dt`` is the plant's step per bus tick, default ``1 / rate_hz``
+    (the robot in real time). With a longer bus period than ``plant_dt``
+    the robot runs slower than real time, so that a controller slower
+    than the real-time period still answers each sample before the bus's
+    next tick."""
     from ..types import resolve_device
     from .hal import ShmHardware
     from .shm import ShmRing
@@ -207,17 +226,22 @@ def measure(duration_s: float = 4.0, rate_hz: float = 400.0,
         estop_at_s = 0.8 * duration_s
     n_ticks = int(duration_s * rate_hz)
     estop_tick = int(estop_at_s * rate_hz)
+    if prefix is None:
+        prefix = f"{BUS_PREFIX}_{os.getpid()}"
+    plant_dt = plant_dt or 1.0 / rate_hz
 
     state_ring, cmd_ring = ShmHardware.create_rings(prefix)
     try:
         report = _measure_inner(prefix, rate_hz, n_ticks, estop_tick,
-                                state_ring, cmd_ring, device, bus_device)
+                                state_ring, cmd_ring, device, bus_device,
+                                plant_dt)
     finally:
         # an aborted run must not leak the rings
         for ring, name in ((state_ring, "_state"), (cmd_ring, "_cmd")):
             ring.close()
             ShmRing.unlink(prefix + name)
-    report.update(device=str(device), bus_device=str(bus_device))
+    report.update(device=str(device), bus_device=str(bus_device),
+                  prefix=prefix, plant_dt=plant_dt)
     return report
 
 
@@ -239,7 +263,7 @@ def _restore_scheduling(orig_affinity, orig_nice) -> None:
 
 
 def _measure_inner(prefix, rate_hz, n_ticks, estop_tick, state_ring,
-                   cmd_ring, device, bus_device) -> dict:
+                   cmd_ring, device, bus_device, plant_dt) -> dict:
     from ..types import RobotModel, full_f32_matmuls
     from .hal import ShmHardware
     from .manager import BalanceStandController, ControllerManager
@@ -251,13 +275,13 @@ def _measure_inner(prefix, rate_hz, n_ticks, estop_tick, state_ring,
     bus = ctx.Process(
         target=bus_main,
         args=(prefix, rate_hz, n_ticks + int(2.0 * rate_hz), stats_q,
-              str(bus_device)),
+              str(bus_device), plant_dt),
         daemon=True)
     bus.start()
     try:
         model = RobotModel.simpledog(device)
         hw = ShmHardware(state_ring, cmd_ring)
-        mgr = ControllerManager(hw, model, dt=period)
+        mgr = ControllerManager(hw, model, dt=plant_dt)
         ctrl = BalanceStandController(model, device=device)
         mgr.register(ctrl)
 
@@ -287,6 +311,8 @@ def _measure_inner(prefix, rate_hz, n_ticks, estop_tick, state_ring,
         rt_active = _try_realtime_priority(cpu=0, fifo=False)
         tick_t, runnable = [], []
         estop_sent_t = estop_seen_t = None
+        standing = sample0  # the last sample read before the e-stop
+        finite = True  # every sample read was finite
         try:
             for i in range(n_ticks):
                 tick_t.append(time.perf_counter())
@@ -298,6 +324,9 @@ def _measure_inner(prefix, rate_hz, n_ticks, estop_tick, state_ring,
                     estop_sent_t = time.perf_counter()
                     mgr.estop()
                 sample = mgr.tick()
+                finite = finite and bool(np.isfinite(sample.pack()).all())
+                if estop_sent_t is None:
+                    standing = sample
                 if (estop_sent_t is not None and estop_seen_t is None
                         and sample.estop):
                     estop_seen_t = time.perf_counter()
@@ -325,6 +354,11 @@ def _measure_inner(prefix, rate_hz, n_ticks, estop_tick, state_ring,
         "estop_latency_s": (None if estop_seen_t is None
                             else float(estop_seen_t - estop_sent_t)),
         "kept_previous": mgr.kept_previous,
+        "first_failure": mgr.first_failure,
+        "samples_finite": finite,
+        "height_before_estop": float(standing.base_position[2]),
+        "speed_before_estop": float(
+            np.linalg.norm(standing.base_linear_velocity)),
         "contention_window": window_contention(runnable),
         "runnable_mean": float(np.mean(runnable)) if runnable else 0.0,
         "rt_priority": rt_active,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import json
 import multiprocessing as mp
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -133,7 +134,7 @@ def test_shm_ring_push_pop_latest(where):
     from quadruped_locomotion_tpu_torch.runtime.shm import BUILD_DIR, ShmRing, build_library
 
     before = _native_status()
-    name = f"/qlt_torch_test_{where}"
+    name = f"/qlt_torch_test_{where}_{os.getpid()}"
     ring = ShmRing.create(name, slot_floats=8, n_slots=16)
     try:
         assert ring.pop_latest(8) is None
@@ -302,6 +303,9 @@ def test_failed_update_keeps_previous_torques(model):
         np.testing.assert_array_equal(m._last_tau, prev)
         np.testing.assert_array_equal(m.hw.read().tau, prev)
     assert m.kept_previous == 2
+    assert m.first_failure == dict(tick=2, controller="broken",
+                                   error="RuntimeError: boom",
+                                   sample_finite=True)
 
 
 def test_joint_torque_forwarding(model):
@@ -330,9 +334,12 @@ def test_two_process_loop_on_the_cpu():
     assert rep["bus_ticks"] > 0 and "bus_error" not in rep, rep
     assert rep["bus_estopped"] and rep["controller_ticks"] >= 10, rep
     assert rep["estop_latency_s"] is not None, rep
-    assert rep["kept_previous"] == 0, rep
+    assert rep["kept_previous"] == 0 and rep["first_failure"] is None, rep
+    assert rep["samples_finite"], rep
     assert (rep["device"], rep["bus_device"]) == ("cpu", "cpu")
-    assert not list(Path("/dev/shm").glob(rb.BUS_PREFIX.strip("/") + "*"))
+    assert rep["plant_dt"] == 1.0 / 400 and rep["bus_held_ticks"] >= 0, rep
+    assert rep["prefix"].startswith(rb.BUS_PREFIX + "_")  # + the pid
+    assert not list(Path("/dev/shm").glob(rep["prefix"].strip("/") + "_*"))
 
 
 def test_entry_points_default_to_cuda(monkeypatch, model):
