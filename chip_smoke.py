@@ -5,7 +5,8 @@ load-factor double solve and the config-5 scenario sweep; then the
 EKF-estimated closed loop, scripted motion (the preview of every bundled
 motion script and its closed loop) and the 400 Hz runtime (the controller
 manager in process and the two-process realtime loop), whose generic QPs
-do not use the kernel; last, the bench entry's headline.
+do not use the kernel; then the operator API (the action server and the
+console's trot, which runs the kernel); last, the bench entry's headline.
 
     python3 chip_smoke.py            # needs one CUDA card; exits 1 without
 
@@ -50,19 +51,21 @@ Phases, each of which raises (exit code 1) when a gate fails:
    end-to-end gap against the "plain" backend is printed.
 7. The articulated main path: ``rollout(plant="articulated")`` (the
    default plant) over B = 4096 trot scenarios for ``--art-ticks``
-   planner ticks (default 50). Gates: 4 launches per tick, finite
-   telemetry, upright fraction >= 0.99 at the end, a 5-tick run through
+   planner ticks (default 25, cut from 50 to make room for phase 15).
+   Gates: 4 launches per tick, finite telemetry, upright fraction
+   >= 0.99 at the end, a 5-tick run through
    the plain QP within 1e-3 m of the kernel run; the rollout's worst-KKT
    QP, re-solved alone, gives the kernel's in-rollout answer again.
 8. Latency at B = 1 (bench.py's ``_latency_measure``, through the bench
    entry's ``latency_measure``): ``--latency-chunks`` 25-tick chunks
-   (default 3) through the kernel with plant "none" and "articulated",
-   and 5 one-tick dispatches; per-control-tick p50 / p99 ms, recorded,
-   not gated (4 launches per planner tick).
+   (default 1, cut from 3 for phase 15) through the kernel with plant
+   "none" and "articulated", and 5 one-tick dispatches; per-control-tick
+   p50 / p99 ms, recorded, not gated (4 launches per planner tick).
 9. The config-5 sweep (``sweep.measure``, bench.py's ``--sweep``) at
    B = 4096: per-scenario 48×48 heightfields, the 3:1 trot/pace mix and
    per-scenario velocity commands, articulated plant, ``--sweep-ticks``
-   planner ticks (default 100) after a one-tick warm-up, with the
+   planner ticks (default 50, cut from 100 for phase 15; the dump recipe
+   passes --sweep-ticks 100) after a one-tick warm-up, with the
    worst-QP and foothold taps inside the timed window. Gates: exactly 4
    kernel launches per tick (the warm-up's included), finite telemetry,
    upright fraction (base over the local ground > 0.25 m) >= 0.9
@@ -73,10 +76,10 @@ Phases, each of which raises (exit code 1) when a gate fails:
    the KKT tail and the share of scenarios whose foothold search picked a
    cell other than the nominal foothold's own.
 10. The EKF-estimated closed loop (``rollout_estimated``) at B = 1024 for
-   ``--est-ticks`` ticks (default 100), trot at 0.2 m/s, realistic
-   sensors from a seeded generator on the card. Gates (the bounds of
+   ``--est-ticks`` ticks (default 100; at least 51), trot at 0.2 m/s,
+   realistic sensors from a seeded generator on the card. Gates (the bounds of
    tests/test_estimated_loop.py): finite telemetry, base height in
-   (0.3, 0.5) m throughout, median velocity error over ticks 50-100
+   (0.3, 0.5) m throughout, median velocity error from tick 50 on
    < 0.12 m/s, every scenario's final position error < 0.25 m, and no
    kernel launch (its QP is the generic IPM, as in the JAX package).
 11. The kinematic preview of the 13 bundled motion scripts, each
@@ -128,6 +131,24 @@ Phases, each of which raises (exit code 1) when a gate fails:
    kept the previous torques and the robot's state (at 400 Hz each
    torque reaches the plant a bus tick late, and the balance controller
    does not stand with that delay: recorded, not gated).
+15. The operator API on the card. (a) The action server
+   (``runtime/action_server.py``) from two committed JAX server
+   snapshots (``tests/data/torch_port_server_golden.npz``), 15 ticks
+   each through ``make_torch_port_golden.run_window``: a footstep goal
+   whose first feedback appends a second goal, three paused ticks, then
+   the first goal's completion; and a stop() with PREEMPT_STEP mid-swing.
+   Gates: every feedback field, step index, done flag and live row count
+   equal to JAX's tick for tick (duration, phase and time in step within
+   1e-6), results on the same ticks with the same status, base positions
+   within 1e-4 m, paused ticks leave the executor's clock where it was,
+   one device-to-host copy per tick, no kernel launch (the generic QP, as
+   in the JAX server). (b) ``trot --seconds 0.5`` through the console in
+   process (``cli.main``): the batched rollout at B = 1 through the
+   kernel. Gates: exit 0, the JAX console's keys, no NaN, distance and
+   final height within 1e-3 m of the committed JAX console's
+   (``tests/data/torch_port_console_golden.npz``), exactly 4 kernel
+   launches per planner tick. (c) Its ``--plot`` PNG exists and is not
+   empty. Prints ms per server tick and per trot tick.
 
 Then ``python -m quadruped_locomotion_tpu_torch.bench --kernel-only`` runs
 as a subprocess: its last line must carry bench.py's headline keys and
@@ -1312,6 +1333,138 @@ def check_realtime(duration_s: float) -> dict:
     return dict(real=real, paced=paced)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the operator API on the card
+# --------------------------------------------------------------------------
+
+SERVER_GOLDEN = DATA / "torch_port_server_golden.npz"
+CONSOLE_GOLDEN = DATA / "torch_port_console_golden.npz"
+OPERATOR_WINDOWS = {"append_pause": 15, "stop_step": 15}  # window -> ticks
+OPERATOR_FLOAT_TOL = 1e-6  # feedback duration and phase, time in step
+CONSOLE_TOL = 1e-3  # m, the console trot against the JAX console's
+TROT_SECONDS = 0.5  # 50 planner ticks
+
+
+def check_operator_api(device) -> dict:
+    """Phase 15: (a) the action server from two committed JAX snapshots,
+    15 ticks each (a goal's first feedback appends a second goal, three
+    paused ticks, the first goal's completion; a stop() with
+    PREEMPT_STEP); (b) ``trot`` through the console in process at
+    B = 1; (c) its telemetry plotted through ``--plot``."""
+    import contextlib
+    import io
+    import tempfile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    from make_torch_port_golden import FEEDBACK_INTS, run_window
+    from make_torch_port_references import slice7_goals
+
+    from quadruped_locomotion_tpu_torch import convert
+    from quadruped_locomotion_tpu_torch.api import cli
+    from quadruped_locomotion_tpu_torch.api import messages as msgs
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.rollout.closed_loop import (
+        CONTROL_SUBSTEPS,
+    )
+    from quadruped_locomotion_tpu_torch.runtime.action_server import (
+        FreeGaitActionServer,
+    )
+    from quadruped_locomotion_tpu_torch.types import RobotModel
+
+    golden = dict(np.load(SERVER_GOLDEN))
+    model = RobotModel.simpledog(device)
+    goals = slice7_goals(msgs)
+    res = {}
+    fk.launches = 0
+    for name, ticks in OPERATOR_WINDOWS.items():
+        snap = convert.unflatten(golden, f"{name}/snap/")
+        srv = FreeGaitActionServer.from_snapshot(model, snap, device=device)
+        c0 = srv.host_copies
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_window(srv, name, ticks, msgs, goals,
+                         lambda t: t.detach().cpu().numpy())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref = {k: golden[f"{name}/tel/{k}"] for k in got}
+        dpos = np.abs(got["base_position"] - ref["base_position"][:ticks])
+        # the copies: one per tick, one for the pose the appended goal is
+        # resolved against, one for the executor state stop() reads
+        r = dict(ticks=ticks, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
+                 host_copies_per_tick=(srv.host_copies - c0 - 1) / ticks,
+                 max_dpos=float(dpos.max()),
+                 results=got["results"].tolist(),
+                 max_dphase=float(np.abs(got["phase"]
+                                         - ref["phase"][:ticks]).max()),
+                 finite=bool(np.isfinite(got["base_position"]).all()))
+        res[name] = r
+        log(f"operator server {name}: " + json.dumps(r))
+        for k in (*FEEDBACK_INTS, "has_feedback", "step_id", "branches",
+                  "step_index", "done", "active"):
+            if not np.array_equal(got[k], ref[k][:ticks]):
+                raise AssertionError(f"{name}: feedback {k} differs from "
+                                     f"JAX: {got[k]} vs {ref[k][:ticks]}")
+        want = ref["results"][ref["results"][:, 0] < ticks]
+        if not np.array_equal(got["results"], want):
+            raise AssertionError(f"{name}: results {got['results']} vs JAX "
+                                 f"{want}")
+        for k in ("duration", "phase", "time_in_step"):
+            if not np.allclose(got[k], ref[k][:ticks], atol=OPERATOR_FLOAT_TOL,
+                               rtol=0):
+                raise AssertionError(f"{name}: {k} differs from JAX")
+        if not (r["finite"] and r["max_dpos"] <= SCRIPT_TOL):
+            raise AssertionError(f"{name}: base {r['max_dpos']} m off JAX "
+                                 f"(> {SCRIPT_TOL})")
+        if r["host_copies_per_tick"] != 1.0:
+            raise AssertionError(f"{name}: {r['host_copies_per_tick']} "
+                                 "host copies per tick")
+        if name == "append_pause":
+            t = got["time_in_step"]
+            paused = got["status"] == msgs.PROGRESS_PAUSED
+            if not (paused.sum() == 3 and np.all(t[paused] == t[0])):
+                raise AssertionError(f"paused ticks moved the clock: {t}")
+    res["server_kernel_launches"] = fk.launches
+    if fk.launches:
+        raise AssertionError("the action server reached the QP kernel")
+
+    console = dict(np.load(CONSOLE_GOLDEN))
+    want = json.loads(str(console["trot/json"]))
+    fk.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        png = Path(tmp) / "trot.png"
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["trot", "--seconds", str(TROT_SECONDS), "--plot",
+                           str(png), "--device", device.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        png_bytes = png.stat().st_size if png.exists() else 0
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ticks = int(TROT_SECONDS / 0.01)
+    trot = dict(rc=rc, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
+                launches=fk.launches, line=line, jax_line=want,
+                d_distance=abs(line["distance"] - want["distance"]),
+                d_final_height=abs(line["final_height"] - want["final_height"]),
+                plot_bytes=png_bytes)
+    res["trot"] = trot
+    log("operator console trot: " + json.dumps(trot))
+    if rc != 0 or list(line) != list(want) or line["nan"]:
+        raise AssertionError(f"console trot: rc {rc}, line {line}")
+    if not (trot["d_distance"] <= CONSOLE_TOL
+            and trot["d_final_height"] <= CONSOLE_TOL):
+        raise AssertionError(f"console trot off the JAX console: {trot}")
+    per_tick = CONTROL_SUBSTEPS if device.type == "cuda" else 0
+    if fk.launches != per_tick * ticks:
+        raise AssertionError(f"console trot: {fk.launches} kernel launches, "
+                             f"want {per_tick * ticks}")
+    if not png_bytes:
+        raise AssertionError("console trot: --plot wrote no PNG")
+    res["launches"] = fk.launches
+    return res
+
+
 BENCH_HEADLINE_KEYS = (
     "metric", "value", "unit", "vs_baseline", "chain_per_dispatch",
     "batch_time_ms", "single_dispatch_solves_per_s", "single_dispatch_ms",
@@ -1346,11 +1499,11 @@ def main() -> int:
     ap.add_argument("--ticks", type=int, default=25,
                     help="planner ticks of the massless rollout (a quick "
                          "check after a kernel change uses fewer)")
-    ap.add_argument("--art-ticks", type=int, default=50,
+    ap.add_argument("--art-ticks", type=int, default=25,
                     help="planner ticks of the articulated rollout")
-    ap.add_argument("--latency-chunks", type=int, default=3,
+    ap.add_argument("--latency-chunks", type=int, default=1,
                     help="timed 25-tick chunks per plant at B = 1")
-    ap.add_argument("--sweep-ticks", type=int, default=100,
+    ap.add_argument("--sweep-ticks", type=int, default=50,
                     help="planner ticks of the config-5 sweep")
     ap.add_argument("--est-ticks", type=int, default=100,
                     help="planner ticks of the estimated loop (>= 51)")
@@ -1414,6 +1567,7 @@ def main() -> int:
     scr = timed("scripted", check_scripted, args.script_ticks, device)
     man = timed("manager", check_manager, device)
     timed("realtime", check_realtime, args.rt_seconds)
+    op = timed("operator_api", check_operator_api, device)
     timed("bench_entry", check_bench_entry, card)
     if dump is not None:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
@@ -1423,7 +1577,7 @@ def main() -> int:
                 + lf["launches"] + a["launches"] + lat["launches"]
                 + sw["launches"] + est["kernel_launches"]
                 + pre["kernel_launches"] + scr["kernel_launches"]
-                + man["kernel_launches"])
+                + man["kernel_launches"] + op["launches"])
     log("phase wall seconds: " + json.dumps(phase_s)
         + f"; whole script {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{

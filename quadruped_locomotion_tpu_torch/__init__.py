@@ -9,7 +9,10 @@ the QP headline and load-factor solves, the config-5 scenario sweep
 motion scripts compiled to step schedules (``api/``), the BaseAuto pose
 optimization and the step executor (``planning/``), its kinematic
 preview and its closed loop (``rollout/preview.py``,
-``rollout/script_loop.py``), and the console ``python -m
+``rollout/script_loop.py``), the 400 Hz runtime (``runtime/``), the
+operator API (wire messages, the action server, action classes, the
+action loader, markers: ``api/``, ``runtime/action_server.py``), logging
+and plots (``utils/logging.py``, ``viz/``), and the console ``python -m
 quadruped_locomotion_tpu_torch``. The JAX package stays the reference;
 module names here mirror its modules.
 

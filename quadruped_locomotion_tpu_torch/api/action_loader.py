@@ -1,17 +1,21 @@
-"""Action and collection registry (≙ ``quadruped_locomotion_tpu/api/
-action_loader.py``'s ``ActionRegistry`` and ``default_registry``).
+"""Action and collection registry and the action loader (≙
+``quadruped_locomotion_tpu/api/action_loader.py``).
 
 Declaration files keep the reference's schema (``actions/*.yaml``,
 ``collections/*.yaml`` under a root, or a bare directory of motion
 scripts). :func:`default_registry` reads the JAX package's bundled
 action library and motion scripts in place, by path, as data: they are
-framework-free YAML, shared by both packages rather than copied.
+framework-free YAML, shared by both packages rather than copied. The one
+exception is the library's python action, which imports the JAX
+package: the port keeps its own copy under ``action_library/`` here, and
+the registry resolves the bundled python action ids to it
+(:meth:`ActionRegistry.python_action_file`).
 
-"Send" compiles a YAML motion script to a :class:`StepSchedule`; the
-closed loop (``rollout/script_loop.py``) or the kinematic preview
-(``rollout/preview.py``) executes it. Python, launch and combined-YAML
-actions are listed but not run: they need the action server and action
-classes, which the port does not have yet.
+:meth:`ActionRegistry.compile` turns a YAML motion script into a
+:class:`StepSchedule` for the closed loop (``rollout/script_loop.py``) or
+the kinematic preview (``rollout/preview.py``). Python, launch and
+combined-YAML actions run through :class:`ActionLoader` against a live
+:class:`~..runtime.action_server.FreeGaitActionServer`.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ from . import actions as actions_mod
 # the bundled library: data files of the JAX package, read in place
 BUNDLED_LIBRARY = (Path(os.path.abspath(__file__)).parents[2]
                    / "quadruped_locomotion_tpu" / "api" / "action_library")
+# the port's copies of the bundled library's python actions, by action id
+PORT_LIBRARY = Path(os.path.abspath(__file__)).parent / "action_library"
+BUNDLED_PYTHON_ACTIONS = {
+    "velocity_trot": PORT_LIBRARY / "python_actions" / "velocity_trot.py"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,11 +147,20 @@ class ActionRegistry:
         entry = self.actions[action_id]
         if entry.type != "yaml":
             raise NotImplementedError(
-                f"action {action_id!r} is a {entry.type!r} action; the port "
-                "runs yaml motion scripts only (its action server and action "
-                "classes are not ported yet)")
+                f"action {action_id!r} is a {entry.type!r} action, which does "
+                "not compile to one schedule: run it through ActionLoader")
         return actions_mod.load_action(entry.file, base_pos, base_quat,
                                        feet_world, device=device)
+
+    def python_action_file(self, action_id: str) -> str:
+        """The script a python action runs: the port's copy for the
+        bundled library's python actions, else the declared file."""
+        entry = self.actions[action_id]
+        bundled = os.path.normpath(BUNDLED_LIBRARY / "python_actions")
+        if (action_id in BUNDLED_PYTHON_ACTIONS
+                and os.path.dirname(entry.file) == bundled):
+            return str(BUNDLED_PYTHON_ACTIONS[action_id])
+        return entry.file
 
     def compile_sequence(self, collection_id: str, base_pos, base_quat,
                          feet_world, device=None) -> list[StepSchedule]:
@@ -159,3 +176,134 @@ class ActionRegistry:
 def default_registry() -> ActionRegistry:
     """Registry over the bundled action library."""
     return ActionRegistry([str(BUNDLED_LIBRARY)])
+
+
+class ActionLoader:
+    """Runs registry actions through the action lifecycle against a live
+    :class:`~..runtime.action_server.FreeGaitActionServer` (≙ the
+    reference's ActionLoader node): one current action at a time, built
+    per type (yaml, combined_yaml, python, launch), started when
+    INITIALIZED, sequences chained from the done callback. The host pumps
+    :meth:`pump` (one server tick plus subprocess polling each).
+
+    Without ``server``, a server for the simpledog on ``device`` (default
+    CUDA; raises where it is absent) is made."""
+
+    def __init__(self, server=None, registry: ActionRegistry | None = None,
+                 device=None):
+        from . import action as action_mod
+
+        if server is None:
+            from ..runtime.action_server import FreeGaitActionServer
+            from ..types import RobotModel
+
+            server = FreeGaitActionServer(RobotModel.simpledog(device),
+                                          device=device)
+        self._A = action_mod
+        self.server = server
+        self.registry = registry or default_registry()
+        self.action = None  # the current ActionBase
+        self.action_sequence_queue: list[str] = []
+        self.state_log: list[int] = []  # lifecycle transitions observed
+
+    def send_action(self, action_id: str):
+        """Load and start the action; returns the live ActionBase (KeyError
+        for unknown ids). Purges any pending sequence (≙ the reference's
+        per-service purge): a direct send interrupts a running sequence."""
+        self.action_sequence_queue = []
+        return self._send_action_internal(action_id)
+
+    def _send_action_internal(self, action_id: str):
+        self.reset()
+        entry = self.registry.actions[action_id]
+        A = self._A
+        if entry.type == "yaml":
+            with open(entry.file) as f:
+                doc = yaml.safe_load(f)
+            self.action = A.SimpleAction(self.server, doc)
+        elif entry.type == "combined_yaml":
+            act = A.CombinedYamlAction(self.server)
+            act.set_goal_from_file(entry.file)
+            self.action = act
+        elif entry.type == "python":
+            self.action = self._load_python_action(
+                self.registry.python_action_file(action_id))
+        elif entry.type == "launch":
+            self.action = A.SubprocessAction(self.server, [entry.file])
+        else:  # filtered at discovery
+            raise ValueError(entry.type)
+
+        self.action.register_callback(self._feedback_callback,
+                                      self._done_callback)
+        if self.action.state == A.ActionState.INITIALIZED:
+            self.action.start()
+        return self.action
+
+    def _load_python_action(self, file_path: str):
+        """Execute the script, which must leave an ``action`` object
+        behind; it sees ``server``, ``action_loader`` and the action API
+        as ``free_gait_action``."""
+        ns = {"server": self.server, "action_loader": self,
+              "free_gait_action": self._A}
+        with open(file_path) as f:
+            code = f.read()
+        exec(compile(code, file_path, "exec"), ns)
+        if "action" not in ns:
+            raise ValueError(f"{file_path} did not define `action`")
+        return ns["action"]
+
+    def send_action_sequence(self, action_ids) -> None:
+        """Run actions back to back: each DONE starts the next."""
+        ids = list(action_ids)
+        if not ids:
+            return
+        self._send_action_internal(ids[0])
+        self.action_sequence_queue = ids[1:]
+
+    def pump(self, n_ticks: int = 1) -> None:
+        """Advance the server and poll process actions."""
+        for _ in range(n_ticks):
+            self.server.tick()
+            if self.action is not None and hasattr(self.action, "poll"):
+                self.action.poll()
+
+    def pump_until(self, states, max_ticks: int = 20_000) -> bool:
+        """Pump until the current action reaches one of ``states``."""
+        if not isinstance(states, (list, tuple, set)):
+            states = (states,)
+        for _ in range(max_ticks):
+            if self.action is not None and self.action.state in states:
+                return True
+            self.pump()
+        return self.action is not None and self.action.state in states
+
+    def _feedback_callback(self) -> None:
+        if self.action is not None:
+            self.state_log.append(self.action.state)
+
+    def _done_callback(self) -> None:
+        if self.action is not None:
+            self.state_log.append(self.action.state)
+        if not self.action_sequence_queue:
+            return
+        if self.action is None or self.action.state != self._A.ActionState.DONE:
+            self.action_sequence_queue = []  # an error purges the rest
+            return
+        next_id = self.action_sequence_queue.pop(0)
+        try:
+            self._send_action_internal(next_id)
+        except (KeyError, ValueError, OSError):
+            # an unknown id or an unreadable action file ends the sequence
+            # in the ERROR state instead of raising out of server.tick()
+            # (≙ the reference's purge on a failed load)
+            self.action_sequence_queue = []
+            self.action = None
+            self.state_log.append(self._A.ActionState.ERROR)
+
+    def reset(self) -> None:
+        """Stop and drop the current action."""
+        if self.action is not None and self.action.state in (
+                self._A.ActionState.PENDING, self._A.ActionState.ACTIVE,
+                self._A.ActionState.IDLE):
+            self.action.stop()
+        self.action = None

@@ -3,18 +3,31 @@ api/cli.py``), as subcommands of ``python -m quadruped_locomotion_tpu_torch``:
 
     list-actions [--collection ID]
     list-collections
-    preview ACTION [--ticks N] [--out f.npz]   kinematic preview
-    run ACTION [--ticks N]                     the closed loop
+    preview ACTION [--ticks N] [--out f.npz] [--plot f.png]
+    run ACTION [--ticks N] [--plot f.png]      the closed loop
     run-collection ID                          a sequence, back to back
+    trot --vx 0.2 --seconds 4 [--plot f.png]   the gait engine's trot
+    pace --vx 0.2 --seconds 4 [--plot f.png]   and its pace
+    edit [--script FILE]                       foothold / knot markers
+    update                                     re-scan the registry
 
 ``preview`` and ``run`` print the JSON line of the JAX package's console
 (``action``, ``ticks``, ``completed``, ``final_base``, then
 ``final_feet`` / ``max_qp_kkt``) and exit 0 when the schedule completed.
+``trot`` / ``pace`` run the batched closed loop at one scenario
+(articulated plant) through its default QP backend, the CUDA kernel on
+the card, and print the JAX console's keys (``gait``, ``seconds``,
+``cmd``, ``distance``, ``mean_speed``, ``final_height``, ``nan``); they
+exit 1 when the base went non-finite. ``edit`` reads marker commands
+(:func:`.marker.repl`) from stdin or ``--script`` against a live action
+server and prints the goals sent and the final state. ``--plot`` writes
+a PNG (``viz/plot.py``).
+
 Every command that computes runs on ``--device`` (default ``cuda``;
-without CUDA it fails unless given ``--device cpu``). The closed loop's
-balance QP is the generic IPM, as in the JAX package: on the card a tick
-takes about a second, so ``run`` defaults to the JAX console's 4 s of
-planner ticks per step and takes minutes; ``--ticks`` cuts it.
+without CUDA it fails unless given ``--device cpu``). The scripted closed
+loop's balance QP is the generic IPM, as in the JAX package: on the card
+a tick takes about two seconds, so ``run`` defaults to the JAX console's
+4 s of planner ticks per step and takes minutes; ``--ticks`` cuts it.
 """
 
 from __future__ import annotations
@@ -78,6 +91,11 @@ def cmd_preview(args) -> int:
         "final_base": batch.base_position[-1].cpu().tolist(),
         "final_feet": batch.feet_world[-1].cpu().tolist(),
     }))
+    if args.plot:
+        from ..viz import plot_preview
+
+        plot_preview(batch, args.plot, title=f"preview: {args.action}")
+        print(f"preview plot saved to {args.plot}", file=sys.stderr)
     if args.out:
         np.savez(args.out, **{
             k: getattr(batch, k).cpu().numpy()
@@ -109,6 +127,11 @@ def cmd_run(args) -> int:
     sched = _compile(_registry(args), args.action, ss0.sim, args.device)
     ticks = args.ticks or int(sched.num_steps * 4.0 / 0.01)
     ssf, tel = _run_schedule(model, ss0, sched, ticks, args.device)
+    if args.plot:
+        from ..viz import plot_telemetry
+
+        plot_telemetry(tel, args.plot, title=f"run: {args.action}")
+        print(f"telemetry plot saved to {args.plot}", file=sys.stderr)
     done = bool(tel["done"][-1])
     print(json.dumps({
         "action": args.action, "ticks": ticks, "completed": done,
@@ -135,6 +158,99 @@ def cmd_run_collection(args) -> int:
     return 0
 
 
+def gait_rollout(gait: str, vx: float, vy: float, wz: float, seconds: float,
+                 device=None):
+    """The console's trot / pace: the batched closed loop at one scenario
+    (articulated plant, default QP backend: the kernel on the card) from
+    the gait's standing start, as the JAX console starts it (the init
+    table of gait type 0). Returns the telemetry with the scenario axis
+    dropped."""
+    import torch
+
+    from ..control.locomotion import ControllerParams
+    from ..gait.phase import GaitParams
+    from ..rollout import closed_loop as cl
+    from ..types import RobotModel, resolve_device
+
+    dev = resolve_device(device)
+    model = RobotModel.simpledog(dev)
+    params = ControllerParams.defaults(dev)
+    gp = (GaitParams.pace_defaults(dev) if gait == "pace"
+          else GaitParams.trot_defaults(dev))
+    ls0 = cl.init_locomotion(model, gp, 1, device=dev)
+    cmd = cl.Command(
+        linear_velocity=torch.tensor([[vx, vy, 0.0]], dtype=torch.float32,
+                                     device=dev),
+        yaw_rate=torch.tensor([wz], dtype=torch.float32, device=dev))
+    ticks = int(seconds / 0.01)
+    _, tel = cl.rollout(model, params, gp, ls0, cmd, ticks, device=dev)
+    return {k: v[:, 0] for k, v in tel.items()}
+
+
+def _gait(args, gait: str) -> int:
+    tel = gait_rollout(gait, args.vx, args.vy, args.wz, args.seconds,
+                       args.device)
+    base = tel["base_position"].cpu().numpy()
+    if args.plot:
+        from ..viz import plot_telemetry
+
+        plot_telemetry(tel, args.plot, title=f"{gait} vx={args.vx}")
+        print(f"telemetry plot saved to {args.plot}", file=sys.stderr)
+    dist = np.linalg.norm(base[-1, :2] - base[0, :2])
+    out = {
+        "gait": gait,
+        "seconds": args.seconds,
+        "cmd": [args.vx, args.vy, args.wz],
+        "distance": float(dist),
+        "mean_speed": float(dist / args.seconds),
+        "final_height": float(base[-1, 2]),
+        "nan": bool(np.isnan(base).any()),
+    }
+    print(json.dumps(out))
+    return 1 if out["nan"] else 0
+
+
+def cmd_trot(args) -> int:
+    return _gait(args, "trot")
+
+
+def cmd_pace(args) -> int:
+    return _gait(args, "pace")
+
+
+def cmd_edit(args) -> int:
+    """Foothold / knot editing over a live action server (the headless
+    free_gait_marker): commands from stdin or ``--script``."""
+    from .marker import MarkerSession, repl
+
+    session = MarkerSession(height=args.height, device=args.device)
+    srv = session.server
+    print(session.describe())
+    if args.script:
+        with open(args.script) as f:
+            lines = f.readlines()
+    else:
+        lines = sys.stdin
+    repl(session, lines)
+    fb = srv.last_feedback
+    print(json.dumps({
+        "goals_sent": session.sent_goals,
+        "queue_size": srv.queue_size,
+        "done": srv.done,
+        "final_feet": srv.state.sim.feet_world.cpu().tolist(),
+        "last_status": None if fb is None else fb.status,
+    }))
+    return 0
+
+
+def cmd_update(args) -> int:
+    reg = _registry(args)
+    reg.update()
+    print(f"registry: {len(reg.actions)} actions, "
+          f"{len(reg.collections)} collections")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="quadruped_locomotion_tpu_torch",
@@ -155,6 +271,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("action")
         sp.add_argument("--ticks", type=int, default=None)
         sp.add_argument("--height", type=float, default=0.38)
+        sp.add_argument("--plot", default=None, help="save PNG plot")
         sp.add_argument("--device", default="cuda")
         if name == "preview":
             sp.add_argument("--out", default=None, help="save StateBatch .npz")
@@ -165,6 +282,26 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--height", type=float, default=0.38)
     sp.add_argument("--device", default="cuda")
     sp.set_defaults(fn=cmd_run_collection)
+
+    for name, fn in (("trot", cmd_trot), ("pace", cmd_pace)):
+        sp = sub.add_parser(name)
+        sp.add_argument("--vx", type=float, default=0.2)
+        sp.add_argument("--vy", type=float, default=0.0)
+        sp.add_argument("--wz", type=float, default=0.0)
+        sp.add_argument("--seconds", type=float, default=4.0)
+        sp.add_argument("--plot", default=None, help="save PNG plot")
+        sp.add_argument("--device", default="cuda")
+        sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser("edit")
+    sp.add_argument("--height", type=float, default=0.4)
+    sp.add_argument("--script", default=None,
+                    help="read edit commands from a file instead of stdin")
+    sp.add_argument("--device", default="cuda")
+    sp.set_defaults(fn=cmd_edit)
+
+    sp = sub.add_parser("update")
+    sp.set_defaults(fn=cmd_update)
     return p
 
 

@@ -133,6 +133,27 @@ def fsm_step(
                     store_flag=store_flag), out
 
 
+def contact_fsm(desired_support: torch.Tensor, contact: torch.Tensor,
+                swing_phase: torch.Tensor, t_swing) -> FsmOutput:
+    """Stateless single-tick reconciliation (no memory, no lost-contact
+    detection): :func:`fsm_step` from a fresh mid-stance state, with the
+    stance phase pinned to 0. ``swing_phase`` (..., 4) is in seconds."""
+    t = torch.clamp(torch.as_tensor(t_swing, dtype=swing_phase.dtype,
+                                    device=swing_phase.device), min=1e-6)
+    batch = swing_phase.shape[:-1]
+    fsm0 = FsmState(
+        leg_state=torch.full((*batch, 4), STANCE_NORMAL, dtype=torch.int32,
+                             device=swing_phase.device),
+        stored_q=torch.zeros((*batch, 4, 3), dtype=swing_phase.dtype,
+                             device=swing_phase.device),
+        store_flag=torch.zeros((*batch, 4), dtype=torch.bool,
+                               device=swing_phase.device),
+    )
+    _, out = fsm_step(fsm0, desired_support, contact, swing_phase / t,
+                      torch.zeros_like(swing_phase), fsm0.stored_q)
+    return out
+
+
 def apply_swing_reflexes(
     pos_ref: torch.Tensor,  # (...,4,3) world swing references
     vel_ref: torch.Tensor,

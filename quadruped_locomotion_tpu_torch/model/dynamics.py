@@ -19,6 +19,7 @@ from functools import partial
 import torch
 from torch.func import grad, jacfwd, vmap
 
+from ..ops import linalg3
 from ..types import RobotModel, const
 from .kinematics import leg_com_positions_hip, link_rotations_hip, mv
 
@@ -94,3 +95,24 @@ def leg_inverse_dynamics(
     arrays and (..., 3) base-frame gravity -> (..., 4, 3)."""
     g_hip = _gravity_in_hips(model, gravity_in_base, q.dtype)
     return _per_leg(partial(_inverse_dynamics, model), q, qd, qdd, g_hip)
+
+
+def inverse_dynamics(model: RobotModel, q: torch.Tensor, qd: torch.Tensor,
+                     qdd: torch.Tensor,
+                     gravity_in_base: torch.Tensor) -> torch.Tensor:
+    """All legs' inverse dynamics (the JAX package's name for
+    :func:`leg_inverse_dynamics`): (..., 4, 3) torques."""
+    return leg_inverse_dynamics(model, q, qd, qdd, gravity_in_base)
+
+
+def leg_forward_dynamics(model: RobotModel, q_leg: torch.Tensor,
+                         qd_leg: torch.Tensor, tau_leg: torch.Tensor,
+                         gravity_in_base: torch.Tensor, leg) -> torch.Tensor:
+    """q̈ = M⁻¹(τ − C q̇ − G) of one leg (index ``leg``): (..., 3) joint
+    arrays and (..., 3) base-frame gravity -> (..., 3)."""
+    hip_rot = model.hip_rot[leg].to(q_leg.dtype)
+    g_hip = mv(hip_rot.transpose(-1, -2), gravity_in_base)
+    bias = _per_leg(partial(_inverse_dynamics, model), q_leg, qd_leg,
+                    torch.zeros_like(qd_leg), g_hip)
+    m = leg_mass_matrix(model, q_leg)
+    return linalg3.solve3(m, tau_leg - bias)

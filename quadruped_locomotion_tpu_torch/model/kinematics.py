@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from ..ops import linalg3
 from ..types import RobotModel, const
 from ..utils.rotations import cross, rotz, wrap_angle
 
@@ -117,6 +118,13 @@ def inverse_kinematics(
         branch = model.ik_branch
     idx = branch.long().reshape(4, 1, 1).expand(sols.shape[:-2] + (1, 3))
     return torch.gather(sols, -2, idx).squeeze(-2)
+
+
+def joint_velocities_from_foot_velocities(model: RobotModel, q: torch.Tensor,
+                                          v_feet: torch.Tensor) -> torch.Tensor:
+    """Differential IK: solve J q̇ = v per leg, v_feet (..., 4, 3) in the
+    base frame -> q̇ (..., 4, 3)."""
+    return linalg3.solve3(jacobians(model, q), v_feet)
 
 
 def foot_velocities(model: RobotModel, q: torch.Tensor, qd: torch.Tensor):

@@ -15,6 +15,7 @@ velocity.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -130,6 +131,23 @@ def init_locomotion_mixed(
                            fsm=init_fsm_state((B,), dev, sim.feet_world.dtype))
 
 
+def _stack(trees: list):
+    """Stack a list of same-layout trees (tensors, dicts, dataclasses,
+    NamedTuples) leaf by leaf along a new leading axis."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(t0, dict):
+        return {k: _stack([t[k] for t in trees]) for k in t0}
+    if dataclasses.is_dataclass(t0):
+        return dataclasses.replace(t0, **{
+            f.name: _stack([getattr(t, f.name) for t in trees])
+            for f in dataclasses.fields(t0)})
+    if isinstance(t0, tuple):
+        return type(t0)(*(_stack(list(v)) for v in zip(*trees)))
+    raise TypeError(f"cannot stack {type(t0)!r}")
+
+
 def _plant(plant: str):
     if plant not in PLANTS:
         raise ValueError(f"unknown plant {plant!r}")
@@ -147,12 +165,17 @@ def planner_tick(
     plant: str = "articulated",
     friction_mu: float | None = None,
     qp_backend: str = "auto",
+    telemetry_fn=None,
 ):
     """One 100 Hz planner tick + 4 control/physics substeps over the batch.
     ``terrain``: a ``Heightfield`` with one map per scenario (None is
     flat ground at z = 0). ``friction_mu`` (articulated plant only)
     bounds contact forces by the Coulomb cone. Returns (new
-    LocomotionState, per-scenario max QP KKT over the substeps (B,))."""
+    LocomotionState, per-scenario max QP KKT over the substeps (B,)).
+    ``telemetry_fn(state, tau, diag, ctx) -> tree``, if given, collects
+    per-substep extras (the controller's state, the applied torques, the
+    balance diagnostics and the formed QP of each substep); the second
+    result is then (kkt, extras stacked over the substeps)."""
     plant_step = _plant(plant)
     plant_kwargs = ({"friction_mu": friction_mu}
                     if friction_mu is not None and plant == "articulated"
@@ -169,6 +192,7 @@ def planner_tick(
 
     sim, fsm_state = ls.sim, ls.fsm
     kkt = None
+    extras = []
     for _ in range(CONTROL_SUBSTEPS):
         # ground height under each foot
         gz = (torch.zeros_like(sim.feet_world[..., 2]) if terrain is None
@@ -187,16 +211,21 @@ def planner_tick(
                                  pos_r, vel_r, acc_r)
         sol = solve_formed_qp_batched(ctx.G, ctx.g, ctx.D, ctx.d,
                                       iters=qp_iters, backend=qp_backend)
-        tau, _ = locomotion_finish(model, params, state, ctx, sol)
+        tau, diag = locomotion_finish(model, params, state, ctx, sol)
         # lost-contact freeze reflex: hold the posture stored at loss
         tau_freeze = joint_pd_gravity_torques(
             model, state, fsm.q_freeze, torch.zeros_like(fsm.q_freeze))
         tau = torch.where(fsm.freeze[..., None], tau_freeze, tau)
+        if telemetry_fn is not None:
+            extras.append(telemetry_fn(state, tau, diag, ctx))
         sim = plant_step(model, sim, tau, CONTROL_DT, support=fsm.support,
                          ground_height=gz, **plant_kwargs)
         k = sol.kkt_error
         kkt = k if kkt is None else torch.maximum(kkt, k)
-    return LocomotionState(sim=sim, gait=gait2, fsm=fsm_state), kkt
+    out = LocomotionState(sim=sim, gait=gait2, fsm=fsm_state)
+    if telemetry_fn is None:
+        return out, kkt
+    return out, (kkt, _stack(extras))
 
 
 def rollout(
@@ -212,12 +241,15 @@ def rollout(
     friction_mu: float | None = None,
     qp_backend: str = "auto",
     device=None,
+    telemetry_fn=None,
 ):
     """Batched closed-loop rollout on ``device`` (default CUDA; raises
     where it is absent). ``gait_params`` shared or per scenario,
     ``terrain`` None (flat) or one ``Heightfield`` map per scenario.
     Returns (final state, telemetry): a dict of (T, B, ...) tensors, one
-    entry per planner tick."""
+    entry per planner tick. With ``telemetry_fn`` (see
+    :func:`planner_tick`) the dict also holds ``extras``, leaves
+    (T, substeps, B, ...)."""
     dev = resolve_device(device)
     full_f32_matmuls()
     _plant(plant)
@@ -229,12 +261,16 @@ def rollout(
     tel = {k: [] for k in ("base_position", "base_quaternion",
                            "base_velocity", "feet_world", "support",
                            "leg_state", "qp_kkt")}
+    extras = []
     for _ in range(planner_steps):
-        ls, kkt = planner_tick(
+        ls, tick_out = planner_tick(
             model, params, gait_params, ls, command, qp_iters=qp_iters,
             terrain=terrain, plant=plant, friction_mu=friction_mu,
-            qp_backend=qp_backend,
+            qp_backend=qp_backend, telemetry_fn=telemetry_fn,
         )
+        kkt = tick_out if telemetry_fn is None else tick_out[0]
+        if telemetry_fn is not None:
+            extras.append(tick_out[1])
         base = ls.sim.robot.base
         tel["base_position"].append(base.position)
         tel["base_quaternion"].append(base.quaternion)
@@ -243,4 +279,7 @@ def rollout(
         tel["support"].append(ls.gait.phase.support)
         tel["leg_state"].append(ls.fsm.leg_state)
         tel["qp_kkt"].append(kkt)
-    return ls, {k: torch.stack(v) for k, v in tel.items()}
+    out = {k: torch.stack(v) for k, v in tel.items()}
+    if telemetry_fn is not None:
+        out["extras"] = _stack(extras)
+    return ls, out

@@ -58,6 +58,15 @@ def contact_sensor(sim: SimState, ground_height=0.0) -> torch.Tensor:
     return sim.robot.support | (sim.feet_world[..., 2] <= ground_height + CONTACT_TOL)
 
 
+def foot_heights(sim: SimState, terrain_height_fn=None) -> torch.Tensor:
+    """Clearance of each foot above the terrain (flat ground by default):
+    (..., 4)."""
+    z = sim.feet_world[..., 2]
+    if terrain_height_fn is None:
+        return z
+    return z - terrain_height_fn(sim.feet_world[..., :2])
+
+
 def _integrate_swing_legs(model, q, qd, tau, g_base, dt):
     """Substepped semi-implicit integration of the 3-DoF leg dynamics with
     implicit viscous joint damping: (M + h·b·I) q̇' = M q̇ + h·(τ − C q̇ − G)."""

@@ -205,3 +205,20 @@ def optimize_footholds(
     z = hf.height_at(best_xy)
     normal = hf.normal_at(best_xy)
     return torch.cat([best_xy, z[..., None]], dim=-1), normal, found
+
+
+def optimize_foothold(
+    hf: Heightfield,
+    nominal_xy: torch.Tensor,  # (B, 2) desired foothold, one per map
+    hip_world: torch.Tensor | None = None,  # (B, 3) kinematic hip
+    max_reach: float = 0.55,
+    window: int = SEARCH_WINDOW,
+    threshold: float = TRAVERSABILITY_THRESHOLD,
+):
+    """The single-foot form of :func:`optimize_footholds` (≙
+    ``FootstepOptimization::getOptimizedFoothold``): one nominal foothold
+    xy per map. Returns (foothold (B, 3), normal (B, 3), found (B,))."""
+    nominal = torch.cat([nominal_xy, torch.zeros_like(nominal_xy[..., :1])],
+                        dim=-1)
+    return optimize_footholds(hf, nominal, hip_world, max_reach, window,
+                              threshold)

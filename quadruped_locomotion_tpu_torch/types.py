@@ -23,6 +23,15 @@ IK_BRANCH = {"OUT_LEFT": 0, "IN_RIGHT": 1, "IN_LEFT": 2, "OUT_RIGHT": 3}
 # Default limb configuration "><": LF=IN_LEFT, RF=OUT_LEFT, RH=IN_LEFT, LH=OUT_LEFT.
 DEFAULT_LIMB_CONFIG = ("IN_LEFT", "OUT_LEFT", "IN_LEFT", "OUT_LEFT")
 
+# The four whole-robot configure strings of the reference's
+# QuadrupedState::setLimbConfigure, in leg order (LF, RF, RH, LH).
+LIMB_CONFIGURE = {
+    "<<": ("IN_LEFT", "OUT_LEFT", "OUT_LEFT", "IN_LEFT"),
+    "<>": ("OUT_LEFT", "IN_LEFT", "OUT_LEFT", "IN_LEFT"),
+    "><": DEFAULT_LIMB_CONFIG,
+    ">>": ("OUT_LEFT", "IN_LEFT", "IN_LEFT", "OUT_LEFT"),
+}
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the GPU. Raises instead of falling back to the CPU."""
@@ -32,6 +41,15 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def limb_configure_branches(configure: str, device=None) -> torch.Tensor:
+    """Configure string ('<<', '<>', '><', '>>') -> (4,) int32 IK-branch
+    tensor on ``device`` (default CUDA). Raises KeyError on unknown
+    strings."""
+    names = LIMB_CONFIGURE[configure]
+    return torch.tensor([IK_BRANCH[n] for n in names], dtype=torch.int32,
+                        device=resolve_device(device))
 
 
 @functools.lru_cache(maxsize=None)

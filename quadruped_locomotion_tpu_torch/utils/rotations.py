@@ -18,6 +18,14 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """(1, 0, 0, 0) on ``device`` (default CUDA)."""
+    from ..types import resolve_device
+
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype,
+                        device=resolve_device(device))
+
+
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=eps)
 
@@ -71,6 +79,43 @@ def matrix_from_quat(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def quat_from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Shepperd's method, branch-free (the four candidates computed and
+    selected per element): (..., 3, 3) -> (..., 4)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def mk(w, x, y, z):
+        return torch.stack([w, x, y, z], dim=-1)
+
+    def root(v):
+        return torch.sqrt(torch.clamp(v, min=1e-12)) * 2.0
+
+    s0 = root(1.0 + tr)
+    q0 = mk(0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0)
+    s1 = root(1.0 + m00 - m11 - m22)
+    q1 = mk((m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1)
+    s2 = root(1.0 - m00 + m11 - m22)
+    q2 = mk((m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2)
+    s3 = root(1.0 - m00 - m11 + m22)
+    q3 = mk((m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, q0, torch.where(cond1, q1,
+                                           torch.where(cond2, q2, q3)))
+    return quat_normalize(q)
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Unit ``axis`` (..., 3) and ``angle`` (...) -> (..., 4)."""
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None],
+                      torch.sin(half)[..., None] * axis], dim=-1)
+
+
 def quat_from_rpy(roll, pitch, yaw) -> torch.Tensor:
     """Intrinsic ZYX (yaw·pitch·roll)."""
     cr, sr = torch.cos(0.5 * roll), torch.sin(0.5 * roll)
@@ -118,6 +163,11 @@ def quat_exp(phi: torch.Tensor) -> torch.Tensor:
                     torch.sin(0.5 * safe) / safe)
     return torch.cat([torch.cos(0.5 * angle)[..., None], k[..., None] * phi],
                      dim=-1)
+
+
+def quat_boxminus(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """kindr-style boxMinus: log(q1 ⊗ q2⁻¹)."""
+    return quat_log(quat_mul(q1, quat_conj(q2)))
 
 
 def quat_boxplus(q: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:

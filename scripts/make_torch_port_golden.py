@@ -30,9 +30,19 @@ or ``tel/qp_kkt``. ``--path``:
   (standup from tick 0, trot_test and change_to_spot windows) with the
   ``ScriptState`` at each window's start, written to
   ``tests/data/torch_port_script_golden.npz``.
+* ``server``: the JAX action server (``FreeGaitActionServer``) run to
+  each of SERVER_WINDOWS' snapshots (goal completion, a mid-run append
+  from a feedback callback with paused ticks, the three stop modes, limb
+  configure, the continuous trot's re-send) and SERVER_TICKS ticks after
+  it; and the JAX ``ActionLoader`` sending the bundled python, combined
+  and launch actions (LOADER_ACTIONS) to fresh servers; written to
+  ``tests/data/torch_port_server_golden.npz``.
+* ``console``: the JAX console's ``trot`` and ``pace`` (CONSOLE_SECONDS),
+  ``edit --script`` and ``update``, written to
+  ``tests/data/torch_port_console_golden.npz``.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_golden.py \
-        [--path flat|sweep|estimated|preview|script] \
+        [--path flat|sweep|estimated|preview|script|server|console] \
         [--plant massless|articulated] [--out PATH] [--batch B] \
         [--ticks T] [--seed 0]
 
@@ -63,6 +73,10 @@ PATH_DEFAULTS = {
                 None),
     "script": (os.path.join(DATA, "torch_port_script_golden.npz"), None,
                None),
+    "server": (os.path.join(DATA, "torch_port_server_golden.npz"), None,
+               None),
+    "console": (os.path.join(DATA, "torch_port_console_golden.npz"), None,
+                None),
     "sweep": (os.path.join(DATA, "torch_port_sweep_golden.npz"), 8, 20),
     "estimated": (os.path.join(DATA, "torch_port_estimated_golden.npz"),
                   3, 10),
@@ -338,10 +352,333 @@ def make_script_golden() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# --path server: JAX action-server snapshots and the ticks after each
+# --------------------------------------------------------------------------
+
+SERVER_CAPACITY = 12  # tests/test_action_server.py's buffer
+SERVER_TICKS = 20  # ticks recorded after each snapshot
+BRANCHES = ("LF_LEG", "RF_LEG", "RH_LEG", "LH_LEG", "base")
+FEEDBACK_INTS = ("step_number", "number_of_steps_in_goal", "queue_size",
+                 "status")
+# window -> (events before tick i: {i: [op, ...]}, what it covers). Ops:
+# "append" (goal footstep1_append submitted from the first goal's next
+# feedback callback), "pause", "resume", "stop", "limb:<configure>".
+SERVER_WINDOWS = {
+    # a footstep goal 9 ticks before it completes; its first feedback
+    # appends a second goal, ticks 1-3 are paused: the completion lands
+    # on tick 11 and the appended goal runs after it
+    "append_pause": ({0: ["append"], 1: ["pause"], 4: ["resume"]},
+                     "mid-run append, pause and resume, goal completion"),
+    # the same goal 2 ticks before it completes, nothing appended
+    "complete": ({}, "goal completion, then the idle executor"),
+    # a 3-step PREEMPT_STEP goal with LF's swing airborne in step 0
+    "stop_step": ({0: ["stop"]}, "stop, PREEMPT_STEP"),
+    # 60 ticks into a PREEMPT_IMMEDIATE / PREEMPT_NO goal
+    "stop_immediate": ({0: ["stop"]}, "stop, PREEMPT_IMMEDIATE"),
+    "stop_no": ({0: ["stop"]}, "stop, PREEMPT_NO"),
+    # 20 ticks into a base_auto goal: an unknown string, then '>>'
+    "limb": ({0: ["limb:??", "limb:>>"]}, "set_limb_configure"),
+    # the continuous trot 2 ticks before its trigger re-sends a goal
+    "trot": ({}, "the continuous trot's feedback-driven re-send"),
+}
+
+
+def server_snapshot(srv, to_numpy) -> dict:
+    """A server's state, flat keys as ``FreeGaitActionServer.from_snapshot``
+    reads them (``to_numpy`` maps the package's state structs to nested
+    numpy dicts)."""
+    goals = srv._goals
+    out = {"active": np.asarray(srv._active), "ticks": np.asarray(srv.ticks),
+           "paused": np.asarray(srv.paused),
+           "preemption_type": np.asarray(srv.preemption_type),
+           "next_goal_id": np.asarray(srv._next_goal_id),
+           "goals/goal_id": np.asarray([g.goal_id for g in goals], np.int64),
+           "goals/first_row": np.asarray([g.first_row for g in goals],
+                                         np.int64),
+           "goals/n_steps": np.asarray([g.n_steps for g in goals], np.int64),
+           "goals/done": np.asarray([g.done for g in goals], bool),
+           "goals/result_status": np.asarray(
+               [-1 if g.result is None else g.result.status for g in goals],
+               np.int64)}
+    out.update(flatten(to_numpy(srv.state), "state/"))
+    out.update(flatten(to_numpy(srv._sched), "sched/"))
+    return out
+
+
+def run_window(srv, name: str | None, ticks: int, msgs, goals: dict, host,
+               action=None) -> dict:
+    """Apply window ``name``'s events to a live server (JAX or the port's:
+    the same API) and run ``ticks`` ticks, recording per tick the
+    feedback (its ints, duration, phase, step id and branch mask), the
+    base position, the executor's step index, time in step and done, the
+    live row count, and the results as (tick, goal id, status), tick -1
+    for results that fire before the first tick. ``host`` maps a state
+    tensor to numpy; ``action`` is the continuous trot (for its count of
+    goals sent). ``name`` None runs the ticks without events."""
+    events = {} if name is None else SERVER_WINDOWS[name][0]
+    seen = {g.goal_id for g in srv._goals if g.result is not None}
+    results, limb = [], []
+
+    def poll(tick):
+        for g in srv._goals:
+            if g.result is not None and g.goal_id not in seen:
+                seen.add(g.goal_id)
+                results.append((tick, g.goal_id, g.result.status))
+
+    rec = {k: [] for k in (*FEEDBACK_INTS, "has_feedback", "step_id",
+                           "duration", "phase", "branches", "base_position",
+                           "step_index", "time_in_step", "done", "active",
+                           "cycles_sent")}
+    for i in range(ticks):
+        for op in events.get(i, []):
+            if op == "append":
+                first = next(g for g in srv._goals if not g.done)
+                sent = []
+
+                def append(fb, sent=sent):
+                    if not sent:
+                        sent.append(srv.submit_goal(goals["footstep1_append"]))
+                first.feedback_cb = append
+            elif op == "pause":
+                srv.pause(True)
+            elif op == "resume":
+                srv.pause(False)
+            elif op == "stop":
+                srv.stop()
+            elif op.startswith("limb:"):
+                limb.append(srv.set_limb_configure(op[5:]))
+            else:
+                raise ValueError(op)
+        poll(i - 1)
+        fb = srv.tick()
+        poll(i)
+        rec["has_feedback"].append(fb is not None)
+        fb = fb or msgs.ExecuteStepsFeedback(step_id="step_-1")
+        for k in FEEDBACK_INTS:
+            rec[k].append(getattr(fb, k))
+        rec["step_id"].append(int(fb.step_id.split("_")[1]))
+        rec["duration"].append(fb.duration)
+        rec["phase"].append(fb.phase)
+        rec["branches"].append([b in fb.active_branches for b in BRANCHES])
+        es = srv.state.exec
+        rec["base_position"].append(host(srv.state.sim.robot.base.position))
+        rec["step_index"].append(int(host(es.step_index)))
+        rec["time_in_step"].append(float(host(es.time_in_step)))
+        rec["done"].append(bool(host(es.done)))
+        rec["active"].append(srv._active)
+        rec["cycles_sent"].append(-1 if action is None else action.cycles_sent)
+    out = {k: np.asarray(v) for k, v in rec.items()}
+    out["results"] = np.asarray(results, np.int64).reshape(-1, 3)
+    out["limb"] = np.asarray(limb, bool)
+    out["ik_branch"] = np.asarray(host(srv.model.ik_branch)).astype(np.int64)
+    return out
+
+
+def restore_trot(action, golden: dict, prefix: str) -> None:
+    """Put a freshly made VelocityTrotAction into the recorded one's state
+    and give its in-flight goals its callbacks."""
+    action._pair = int(golden[f"{prefix}action/pair"])
+    action.cycles_sent = int(golden[f"{prefix}action/cycles_sent"])
+    action.running = bool(golden[f"{prefix}action/running"])
+    action.state = int(golden[f"{prefix}action/state"])
+    action.goal_id = int(golden[f"{prefix}action/goal_id"])
+    for g in action.server._goals:
+        if not g.done:
+            g.feedback_cb = action._feedback_callback
+            g.result_cb = action._result_callback
+
+
+LOADER_ACTIONS = ("velocity_trot", "standup_then_rotate", "external_demo")
+LOADER_TICKS = 3  # ticks recorded after sending a python / combined action
+
+
+def run_loader(loader, action_id: str, msgs, goals: dict, host) -> dict:
+    """Send a registry action through an ActionLoader over a fresh server
+    (JAX or the port's) and record the action's type and state, its goal
+    document (JSON), the server's live schedule rows, and LOADER_TICKS
+    ticks of ``run_window``; a launch action is pumped until DONE and its
+    lifecycle log and exit code are recorded instead."""
+    import json
+
+    act = loader.send_action(action_id)
+    out = {"type": np.asarray(type(act).__name__),
+           "state_after_send": np.asarray(act.state)}
+    if isinstance(act.goal, dict):
+        out["doc"] = np.asarray(json.dumps(act.goal, sort_keys=True))
+    if action_id == "external_demo":
+        if not loader.pump_until(5, max_ticks=100):  # ActionState.DONE
+            raise RuntimeError("the launch action did not finish")
+        out["state_log"] = np.asarray(loader.state_log, np.int64)
+        out["returncode"] = np.asarray(act.proc.returncode)
+        return out
+    srv = loader.server
+    out["active"] = np.asarray(srv._active)
+    out.update({f"rows/{k}": np.asarray(v)[:srv._active] for k, v in
+                flatten(srv_rows(srv, host)).items()})
+    out.update({f"tel/{k}": v for k, v in run_window(
+        srv, None, LOADER_TICKS, msgs, goals, host,
+        act if action_id == "velocity_trot" else None).items()})
+    out["state_log"] = np.asarray(loader.state_log, np.int64)
+    return out
+
+
+def srv_rows(srv, host) -> dict:
+    """The server's padded schedule as a nested numpy dict."""
+    import dataclasses as dc
+
+    return {f.name: host(getattr(srv._sched, f.name))
+            for f in dc.fields(srv._sched)}
+
+
+def make_server_golden() -> dict:
+    """The JAX FreeGaitActionServer (capacity SERVER_CAPACITY) run up to
+    each SERVER_WINDOWS snapshot (``<name>/snap/``), then SERVER_TICKS
+    ticks with the window's events (``<name>/tel/``); the trot window
+    also records its VelocityTrotAction (``<name>/snap/action/``)."""
+    import make_torch_port_references as refs
+    import quadruped_locomotion_tpu.api.messages as msgs
+    from quadruped_locomotion_tpu.api.continuous_actions import (
+        VelocityTrotAction,
+    )
+    from quadruped_locomotion_tpu.runtime.action_server import (
+        FreeGaitActionServer,
+    )
+    from quadruped_locomotion_tpu.types import RobotModel
+
+    model = RobotModel.simpledog()
+    goals = refs.slice7_goals(msgs)
+    base = FreeGaitActionServer(model, capacity=SERVER_CAPACITY)
+
+    def new():
+        srv = FreeGaitActionServer(model, capacity=SERVER_CAPACITY)
+        srv._tick_fn = base._tick_fn  # one compilation for every server
+        return srv
+
+    def ticks_to_result(goal):
+        srv = new()
+        gid = srv.submit_goal(goal)
+        while srv.result_of(gid) is None:
+            srv.tick()
+        return srv.ticks
+
+    t_done = ticks_to_result(goals["footstep2"])
+    out = {"meta/t_done_footstep2": np.asarray(t_done)}
+    for name in SERVER_WINDOWS:
+        srv, action = new(), None
+        if name in ("append_pause", "complete"):
+            srv.submit_goal(goals["footstep2"])
+            srv.run(t_done - (9 if name == "append_pause" else 2))
+        elif name == "stop_step":
+            srv.submit_goal(goals["footstep3"])
+            while not (srv.current_row == 0
+                       and float(srv.state.sim.feet_world[0, 2]) > 0.02):
+                srv.tick()
+        elif name in ("stop_immediate", "stop_no"):
+            srv.submit_goal(goals["footstep2_" + name[5:]])
+            srv.run(60)
+        elif name == "limb":
+            srv.submit_goal(goals["base_auto"])
+            srv.run(20)
+        elif name == "trot":
+            probe = new()
+            act = VelocityTrotAction(probe, velocity=(0.12, 0.0))
+            act.start()
+            while act.cycles_sent < 2:
+                probe.tick()
+            action = VelocityTrotAction(srv, velocity=(0.12, 0.0))
+            action.start()
+            srv.run(probe.ticks - 2)
+            out.update({f"{name}/snap/action/{k}": np.asarray(v) for k, v in (
+                ("pair", action._pair), ("cycles_sent", action.cycles_sent),
+                ("running", action.running), ("state", action.state),
+                ("goal_id", action.goal_id))})
+        out.update({f"{name}/snap/{k}": v for k, v in
+                    server_snapshot(srv, jax_to_numpy).items()})
+        tel = run_window(srv, name, SERVER_TICKS, msgs, goals, np.asarray,
+                         action)
+        out.update({f"{name}/tel/{k}": v for k, v in tel.items()})
+        print(f"{name}: snapshot at tick {int(out[f'{name}/snap/ticks'])}, "
+              f"results {tel['results'].tolist()}", flush=True)
+    from quadruped_locomotion_tpu.api.action_loader import (
+        ActionLoader, default_registry,
+    )
+
+    for action_id in LOADER_ACTIONS:
+        loader = ActionLoader(new(), default_registry())
+        rec = run_loader(loader, action_id, msgs, goals, np.asarray)
+        out.update({f"loader/{action_id}/{k}": v for k, v in rec.items()})
+        print(f"loader {action_id}: {rec['type']}, log "
+              f"{rec['state_log'].tolist()}", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# --path console: the JAX console's trot / pace / edit / update
+# --------------------------------------------------------------------------
+
+CONSOLE_SECONDS = 0.5  # trot / pace: 50 planner ticks
+EDIT_SCRIPT = ("show", "foot LF 0.50 0.21", "send LF", "tick 3", "nudge RF 0.04 0.0",
+               "show", "bogus", "quit")
+
+
+def make_console_golden() -> dict:
+    """``python -m quadruped_locomotion_tpu trot|pace --seconds
+    CONSOLE_SECONDS`` (its printed JSON line and the rollout's telemetry,
+    taken from the ``--plot`` hook), ``edit --script`` over EDIT_SCRIPT
+    (its printed lines) and ``update`` (its line)."""
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    import quadruped_locomotion_tpu.viz as viz
+    from quadruped_locomotion_tpu.api import cli
+
+    out = {}
+    captured = {}
+    real = viz.plot_telemetry
+
+    def hook(tel, path, title=None):
+        captured["tel"] = tel
+        return path
+
+    viz.plot_telemetry = hook
+    try:
+        for gait in ("trot", "pace"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([gait, "--seconds", str(CONSOLE_SECONDS),
+                               "--plot", "unused.png"])
+            line = buf.getvalue().strip().splitlines()[-1]
+            out[f"{gait}/json"] = np.asarray(line)
+            out[f"{gait}/rc"] = np.asarray(rc)
+            for k, v in captured["tel"].items():
+                if not isinstance(v, dict):
+                    out[f"{gait}/tel/{k}"] = np.asarray(v)
+            print(f"{gait}: {line}", flush=True)
+    finally:
+        viz.plot_telemetry = real
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "edit.txt")
+        with open(script, "w") as f:
+            f.write("\n".join(EDIT_SCRIPT) + "\n")
+        for name, argv in (("edit", ["edit", "--script", script]),
+                           ("update", ["update"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out[f"{name}/rc"] = np.asarray(cli.main(argv))
+            out[f"{name}/stdout"] = np.asarray(buf.getvalue())
+    print(json.dumps({k: str(v) for k, v in out.items()
+                      if k.endswith("stdout")})[:2000], flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("flat", "sweep", "estimated",
-                                       "preview", "script"),
+                                       "preview", "script", "server",
+                                       "console"),
                     default="flat")
     ap.add_argument("--plant", choices=sorted(DEFAULTS), default="massless",
                     help="plant of --path flat")
@@ -352,10 +689,11 @@ def main():
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    if args.path in ("preview", "script"):
+    if args.path in ("preview", "script", "server", "console"):
         out = args.out or PATH_DEFAULTS[args.path][0]
-        golden = (make_preview_golden() if args.path == "preview"
-                  else make_script_golden())
+        golden = {"preview": make_preview_golden, "script": make_script_golden,
+                  "server": make_server_golden,
+                  "console": make_console_golden}[args.path]()
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         np.savez_compressed(out, **golden)
         print(f"wrote {out}: {len(golden)} arrays, "

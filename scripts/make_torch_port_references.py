@@ -73,8 +73,18 @@ JAX outputs of ``tests/test_torch_runtime.py``: ``runtime/``, the JAX
 standing for 400 ticks, ``balance_update`` on five of its samples, and
 the single-leg and freeze controllers' torques.
 
+The slice-7 file (``tests/data/torch_port_slice7_refs.npz``) holds the
+JAX outputs of ``tests/test_torch_{messages,utils}.py``: ``messages/``,
+``to_json`` of the goals of :func:`slice7_goals` and of the feedback,
+result and robot-state messages, and ``goal_to_schedule`` of each goal
+against the default stance at two heights; ``item6/``, the reference
+functions that had no counterpart (rotations, leg dynamics, differential
+IK, the single-foot ``optimize_foothold``, ``foot_heights``, the
+stateless ``contact_fsm``, ``spd_solve``, ``rollout(telemetry_fn=)``) on
+seeded inputs; ``logging/``, the ring log's capture order.
+
     JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
-        [--file slice2|fd_qp|slice4|slice5|slice6|all]
+        [--file slice2|fd_qp|slice4|slice5|slice6|slice7|all]
 
 Takes about two minutes per file on a CPU, most of it XLA compilation and
 the eager kernel trace. The tests recompute each section live under
@@ -97,6 +107,7 @@ FD_QP_OUT = os.path.join(DATA, "torch_port_fd_qp_refs.npz")
 SLICE4_OUT = os.path.join(DATA, "torch_port_slice4_refs.npz")
 SLICE5_OUT = os.path.join(DATA, "torch_port_slice5_refs.npz")
 SLICE6_OUT = os.path.join(DATA, "torch_port_slice6_refs.npz")
+SLICE7_OUT = os.path.join(DATA, "torch_port_slice7_refs.npz")
 CHIP_QPS = os.path.join(DATA, "torch_port_chip_qps.npz")
 
 TILE = 1024  # one (8, 128) tile of the JAX kernel trace
@@ -1248,6 +1259,348 @@ def runtime_references() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 7: the operator API's messages and the reference functions that
+# had no counterpart
+# --------------------------------------------------------------------------
+
+
+def slice7_goals(msgs) -> dict:
+    """The goals the slice-7 references compile, built with ``msgs``
+    (either package's ``api/messages.py``: the dataclasses are the same):
+    tests/test_messages.py's two goals, tests/test_action_server.py's
+    footstep and base_auto goals, and tests/test_marker.py's foothold and
+    knot-trajectory goals."""
+    def footsteps(n_steps, preempt=msgs.PREEMPT_STEP, dx=0.06):
+        steps, legs = [], ["LF_LEG", "RF_LEG"]
+        x0 = {"LF_LEG": 0.42, "RF_LEG": 0.42}
+        y = {"LF_LEG": 0.25, "RF_LEG": -0.25}
+        for i in range(n_steps):
+            leg = legs[i % 2]
+            x0[leg] += dx
+            steps.append(msgs.StepMsg(
+                footsteps=[msgs.FootstepMsg(name=leg,
+                                            target=(x0[leg], y[leg], 0.0))],
+                base_auto=msgs.BaseAutoMsg(height=0.4)))
+        return msgs.ExecuteStepsGoal(steps=steps, preempt=preempt,
+                                     source_frame="foot_print")
+
+    message_goal = msgs.ExecuteStepsGoal(source_frame="foot_print", steps=[
+        msgs.StepMsg(base_auto=msgs.BaseAutoMsg(height=0.38),
+                     footsteps=[msgs.FootstepMsg(
+                         name="LF_LEG", target=(0.48, 0.175, 0.0),
+                         profile_height=0.10, average_velocity=0.15)]),
+        msgs.StepMsg(base_target=msgs.BaseTargetMsg(
+            position=(0.0, 0.0, 0.0), orientation_rpy=(0.0, 0.0, 0.3),
+            frame="base_link"))])
+    full = msgs.ExecuteStepsGoal(source_frame="foot_print", steps=[
+        msgs.StepMsg(
+            footsteps=[msgs.FootstepMsg(
+                name="LF_LEG", target=(0.48, 0.175, 0.0),
+                surface_normal=(0.0, 0.1, 0.9),
+                ignore_for_pose_adaptation=True)],
+            base_auto=msgs.BaseAutoMsg(height=0.38, support_margin=0.06,
+                                       ignore_timing_of_leg_motion=True)),
+        msgs.StepMsg(
+            end_effector_targets=[msgs.EndEffectorTargetMsg(
+                name="RF_LEG", target_position=(0.45, -0.2, 0.05),
+                average_velocity=0.2, ignore_contact=True)],
+            base_target=msgs.BaseTargetMsg(
+                position=(0.0, 0.0, 0.0), orientation_rpy=(0.0, 0.0, 0.2),
+                frame="base_link")),
+        msgs.StepMsg(end_effector_trajectories=[msgs.EndEffectorTrajectoryMsg(
+            name="RH_LEG", knots=[
+                msgs.TrajectoryKnotMsg(time=0.4, position=(-0.4, -0.18, 0.06)),
+                msgs.TrajectoryKnotMsg(time=0.8, position=(-0.36, -0.18, 0.0))],
+            ignore_contact=True)]),
+        msgs.StepMsg(
+            joint_trajectories=[msgs.JointTrajectoryMsg(
+                name="LH_LEG", knots=[msgs.JointKnotMsg(
+                    time=0.5, positions=(0.1, 0.7, -1.4))],
+                ignore_contact=True)],
+            custom_commands=[msgs.CustomCommandMsg(
+                type="hold", duration=1.5, command="{}")]),
+        msgs.StepMsg(joint_targets=[msgs.JointTargetMsg(
+            name="LH_LEG", positions=(0.0, 0.8, -1.5), duration=0.6,
+            ignore_contact=True)]),
+        msgs.StepMsg(
+            leg_modes=[msgs.LegModeMsg(name="LH_LEG", support_leg=True,
+                                       duration=0.4,
+                                       surface_normal=(0.0, 0.0, 1.0))],
+            base_trajectory=msgs.BaseTrajectoryMsg(
+                knots=[msgs.TrajectoryKnotMsg(
+                    time=1.0, position=(0.02, 0.0, 0.40),
+                    orientation_rpy=(0.0, 0.0, 0.1))],
+                frame="foot_print"))])
+    knots = [msgs.TrajectoryKnotMsg(time=t, position=p) for t, p in (
+        (0.3, (0.44, 0.175, 0.06)), (0.6, (0.47, 0.165, 0.09)),
+        (0.9, (0.49, 0.195, 0.0)))]
+    return {
+        "message": message_goal,
+        "full": full,
+        "footstep2": footsteps(2),
+        "footstep3": footsteps(3),
+        "footstep2_immediate": footsteps(2, msgs.PREEMPT_IMMEDIATE),
+        "footstep2_no": footsteps(2, msgs.PREEMPT_NO),
+        "footstep1_append": footsteps(1, dx=0.05),
+        "base_auto": msgs.ExecuteStepsGoal(
+            steps=[msgs.StepMsg(base_auto=msgs.BaseAutoMsg(height=0.38))],
+            source_frame="foot_print"),
+        "marker_foothold": msgs.ExecuteStepsGoal(steps=[msgs.StepMsg(
+            footsteps=[msgs.FootstepMsg(name="LF_LEG",
+                                        target=(0.50, 0.21, 0.0))],
+            base_auto=msgs.BaseAutoMsg(height=0.4))]),
+        "marker_trajectory": msgs.ExecuteStepsGoal(steps=[msgs.StepMsg(
+            end_effector_trajectories=[msgs.EndEffectorTrajectoryMsg(
+                name="LF_LEG", knots=knots)],
+            base_auto=msgs.BaseAutoMsg(height=0.4))]),
+    }
+
+
+def slice7_messages(msgs) -> dict:
+    """Feedback, result and robot-state messages, besides the goals."""
+    return {
+        "feedback": msgs.ExecuteStepsFeedback(
+            step_id="step_3", step_number=3, number_of_steps_in_goal=4,
+            queue_size=2, status=msgs.PROGRESS_PAUSED, description="x",
+            duration=0.5071719288825989, phase=0.25,
+            active_branches=["LF_LEG", "base"]),
+        "result": msgs.ExecuteStepsResult(status=msgs.RESULT_PREEMPTED,
+                                          goal_id=7),
+    }
+
+
+MESSAGE_HEIGHTS = (0.38, 0.4)  # stances the goals compile against
+STATE_SUPPORT = np.array([True, True, False, True])
+STATE_PHASES = (0.0, 0.0, 0.5, 0.0)
+
+
+def messages_references() -> dict:
+    """``json/<name>``: ``to_json`` of every goal and message (and of the
+    0.4 m stance's ``robot_state_from_sim``); ``<height>/<goal>/``:
+    ``goal_to_schedule`` of each goal against the default stance at that
+    height; ``<height>/<goal>/doc``: the YAML-shaped document, as JSON
+    (the JAX function builds it inline; the tests compare the port's
+    ``goal_to_doc``)."""
+    import json
+
+    import quadruped_locomotion_tpu.api.messages as msgs
+    from quadruped_locomotion_tpu.api import actions
+
+    out = {}
+    goals = slice7_goals(msgs)
+    for name, m in {**goals, **slice7_messages(msgs)}.items():
+        out[f"json/{name}"] = np.asarray(msgs.to_json(m))
+    for h in MESSAGE_HEIGHTS:
+        _, sim = _stance(h)
+        out[f"json/robot_state_{h}"] = np.asarray(msgs.to_json(
+            msgs.robot_state_from_sim(sim, STATE_SUPPORT, STATE_PHASES)))
+        captured = {}
+        real = actions.build_schedule
+
+        def spy(doc, *a, **k):
+            captured["doc"] = doc
+            return real(doc, *a, **k)
+
+        actions.build_schedule = spy
+        try:
+            for name, goal in goals.items():
+                sched = msgs.goal_to_schedule(
+                    goal, sim.robot.base.position, sim.robot.base.quaternion,
+                    sim.feet_world)
+                out.update({f"{h}/{name}/{k}": v
+                            for k, v in _tree(sched).items()})
+                out[f"{h}/{name}/doc"] = np.asarray(
+                    json.dumps(captured["doc"]))
+        finally:
+            actions.build_schedule = real
+    return out
+
+
+def item6_inputs() -> dict:
+    """Seeded inputs of the reference functions that had no counterpart."""
+    rng = np.random.default_rng(7)
+    n = 6
+    axis = rng.normal(size=(n, 3))
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    angle = rng.uniform(-np.pi, np.pi, n)
+    q1 = rng.normal(size=(n, 4))
+    q1 /= np.linalg.norm(q1, axis=-1, keepdims=True)
+    q2 = rng.normal(size=(n, 4))
+    q2 /= np.linalg.norm(q2, axis=-1, keepdims=True)
+    # rotation matrices whose Shepperd branch differs: random ones and
+    # rotations by ~pi about x, y, z (trace < 0, each diagonal largest)
+    rots = [_rot_from_quat(q) for q in q1]
+    for ax in np.eye(3):
+        rots.append(_rot_from_quat(np.concatenate([[0.05], 0.99 * ax])))
+    spd = {}
+    for k in (6, 12, 18):
+        a = rng.normal(size=(4, k, k))
+        spd[f"A{k}"] = a @ np.swapaxes(a, -1, -2) + k * np.eye(k)
+        spd[f"b{k}"] = rng.normal(size=(4, k))
+    return {
+        "axis": axis, "angle": angle, "q1": q1, "q2": q2,
+        "rot": np.stack(rots),
+        "q": rng.uniform(-0.6, 0.6, (n, 4, 3)) + np.array([0.0, 0.7, -1.4]),
+        "qd": rng.normal(scale=0.5, size=(n, 4, 3)),
+        "qdd": rng.normal(scale=2.0, size=(n, 4, 3)),
+        "tau": rng.normal(scale=10.0, size=(n, 4, 3)),
+        "v_feet": rng.normal(scale=0.3, size=(n, 4, 3)),
+        "gravity": np.stack([_rot_from_quat(q).T @ np.array([0, 0, -9.8])
+                             for q in q2]),
+        "support": rng.random((n, 4)) < 0.6,
+        "contact": rng.random((n, 4)) < 0.5,
+        "swing_phase": rng.uniform(0.0, 0.5, (n, 4)),
+        "t_swing": np.asarray(0.45),
+        "feet": np.concatenate([rng.uniform(-0.6, 0.6, (n, 4, 2)),
+                                rng.uniform(-0.02, 0.1, (n, 4, 1))], -1),
+        "nominal_xy": rng.uniform(-0.7, 0.7, (n, 2)),
+        "hips": np.concatenate([rng.uniform(-0.7, 0.7, (n, 2)),
+                                np.full((n, 1), 0.4)], -1),
+        **spd,
+    }
+
+
+def _rot_from_quat(q):
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+ITEM6_MAP = 48  # cells per side of the foothold map
+ROLLOUT_TEL = (2, 2)  # scenarios, planner ticks of rollout(telemetry_fn=)
+
+
+def item6_references() -> dict:
+    """The JAX functions on :func:`item6_inputs`: the rotations, the leg
+    dynamics per leg, the differential IK, ``optimize_foothold`` on a
+    seeded bump map (with and without the hip reach check),
+    ``foot_heights`` over that map, the stateless ``contact_fsm``,
+    ``spd_solve`` at n = 6, 12, 18, and the batched massless
+    ``rollout(telemetry_fn=)`` (``qp_backend="xla"``) of ROLLOUT_TEL trot
+    scenarios recording each substep's torques and formed QP."""
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.control.contact_fsm import contact_fsm
+    from quadruped_locomotion_tpu.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu.gait.phase import GaitParams
+    from quadruped_locomotion_tpu.model import dynamics, kinematics
+    from quadruped_locomotion_tpu.ops.linalgn import spd_solve
+    from quadruped_locomotion_tpu.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu.rollout import simulator as simlib
+    from quadruped_locomotion_tpu.terrain.heightfield import (
+        Heightfield, optimize_foothold,
+    )
+    from quadruped_locomotion_tpu.types import RobotModel
+    from quadruped_locomotion_tpu.utils import rotations as rot
+
+    x = item6_inputs()
+    f32 = {k: jnp.asarray(v, jnp.float32) if v.dtype.kind == "f" else
+           jnp.asarray(v) for k, v in x.items()}
+    model = RobotModel.simpledog()
+    out = {f"inputs/{k}": v for k, v in x.items()}
+    out["quat_identity"] = rot.quat_identity()
+    out["quat_from_matrix"] = rot.quat_from_matrix(f32["rot"])
+    out["quat_from_axis_angle"] = rot.quat_from_axis_angle(f32["axis"],
+                                                           f32["angle"])
+    out["quat_boxminus"] = rot.quat_boxminus(f32["q1"], f32["q2"])
+    out["inverse_dynamics"] = jax.vmap(
+        lambda q, qd, qdd, g: dynamics.inverse_dynamics(model, q, qd, qdd, g))(
+        f32["q"], f32["qd"], f32["qdd"], f32["gravity"])
+    out["leg_forward_dynamics"] = jnp.stack([jax.vmap(
+        lambda q, qd, t, g: dynamics.leg_forward_dynamics(
+            model, q[leg], qd[leg], t[leg], g, leg))(
+        f32["q"], f32["qd"], f32["tau"], f32["gravity"])
+        for leg in range(4)], axis=1)
+    out["joint_velocities_from_foot_velocities"] = jax.vmap(
+        lambda q, v: kinematics.joint_velocities_from_foot_velocities(
+            model, q, v))(f32["q"], f32["v_feet"])
+    rng = np.random.default_rng(11)
+    height = (0.03 * rng.standard_normal((ITEM6_MAP, ITEM6_MAP))
+              ).astype(np.float32)
+    height[20:30, 10:20] += 0.15  # a box the search must step around
+    out["map/height"] = height
+    hf = Heightfield.from_height_array(jnp.asarray(height), origin=(-1.0, -1.0),
+                                       resolution=0.04)
+    for name, hips in (("no_reach", None), ("reach", f32["hips"])):
+        fh, nrm, found = jax.vmap(lambda xy, h: optimize_foothold(
+            hf, xy, h), in_axes=(0, None if hips is None else 0))(
+            f32["nominal_xy"], hips)
+        out.update({f"optimize_foothold/{name}/foothold": fh,
+                    f"optimize_foothold/{name}/normal": nrm,
+                    f"optimize_foothold/{name}/found": found})
+    sim = simlib.default_stance_state(model, height=0.4)
+    heights = []
+    for feet in f32["feet"]:
+        s = sim.replace(feet_world=feet)
+        heights.append(jnp.stack([simlib.foot_heights(s),
+                                  simlib.foot_heights(s, jax.vmap(hf.height_at))]))
+    out["foot_heights"] = jnp.stack(heights)
+    fsm = jax.vmap(lambda d, c, p: contact_fsm(d, c, p, f32["t_swing"]))(
+        f32["support"], f32["contact"], f32["swing_phase"])
+    out.update({f"contact_fsm/{k}": v for k, v in _tree(fsm).items()})
+    for k in (6, 12, 18):
+        out[f"spd_solve/{k}"] = spd_solve(f32[f"A{k}"], f32[f"b{k}"])
+
+    batch, ticks = ROLLOUT_TEL
+    params = ControllerParams.defaults()
+    gp = GaitParams.trot_defaults()
+    ls0 = jax.vmap(lambda _: cl.init_locomotion(model, gp))(jnp.arange(batch))
+    cmd = cl.Command(
+        linear_velocity=jnp.asarray([[0.2, 0.0, 0.0], [0.1, 0.05, 0.0]],
+                                    jnp.float32),
+        yaw_rate=jnp.asarray([0.0, 0.2], jnp.float32))
+
+    def telemetry_fn(state, tau, diag, ctx):
+        return {"tau": tau, "grf": diag.distribution.ground_reaction,
+                "support": state.support, "G": ctx.G, "g": ctx.g,
+                "D": ctx.D, "d": ctx.d}
+
+    _, tel = jax.jit(lambda ls: cl.rollout(
+        model, params, gp, ls, cmd, ticks, telemetry_fn=telemetry_fn,
+        plant="massless", batched=True, qp_backend="xla"))(ls0)
+    out.update({f"rollout_telemetry/{k}": v for k, v in
+                _flatten(_tree(tel)).items()})
+    out.update({f"rollout_telemetry/ls0/{k}": v
+                for k, v in _flatten(_tree(ls0)).items()})
+    out["rollout_telemetry/cmd/linear_velocity"] = cmd.linear_velocity
+    out["rollout_telemetry/cmd/yaw_rate"] = cmd.yaw_rate
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+RING_CAPACITY = 5
+RING_SAMPLES = 8
+
+
+def logging_references() -> dict:
+    """``utils/logging.py``'s ring: RING_SAMPLES seeded samples of a
+    two-leaf tree recorded into a RING_CAPACITY log (under jit), then
+    captured; and the same log after only three samples."""
+    import jax
+    import jax.numpy as jnp
+
+    from quadruped_locomotion_tpu.utils import logging as qlog
+
+    rng = np.random.default_rng(5)
+    samples = {"tau": rng.normal(size=(RING_SAMPLES, 4, 3)).astype(np.float32),
+               "step": np.arange(RING_SAMPLES, dtype=np.int32) * 3}
+    out = {f"samples/{k}": v for k, v in samples.items()}
+    first = {k: jnp.asarray(v[0]) for k, v in samples.items()}
+    rec = jax.jit(qlog.record)
+    for n in (3, RING_SAMPLES):
+        log = qlog.ring_log(first, capacity=RING_CAPACITY)
+        for i in range(n):
+            log = rec(log, {k: jnp.asarray(v[i]) for k, v in samples.items()})
+        cap = qlog.capture(log)
+        out.update({f"capture_{n}/{k}": np.asarray(v) for k, v in cap.items()})
+        out[f"capture_{n}/cursor"] = np.asarray(log.cursor)
+        out[f"capture_{n}/total"] = np.asarray(log.total)
+    return out
+
+
 SECTIONS = {"qp": qp_references, "headline": headline_references,
             "articulated": articulated_references,
             "fd_qp": fd_qp_references, "terrain": terrain_references,
@@ -1256,14 +1609,17 @@ SECTIONS = {"qp": qp_references, "headline": headline_references,
             "footstep": footstep_references, "pid": pid_references,
             "support": support_references, "pose": pose_references,
             "schedule": schedule_references, "advance": advance_references,
-            "runtime": runtime_references}
+            "runtime": runtime_references,
+            "messages": messages_references, "item6": item6_references,
+            "logging": logging_references}
 FILES = {"slice2": (DEFAULT_OUT, ("qp", "headline", "articulated")),
          "fd_qp": (FD_QP_OUT, ("fd_qp",)),
          "slice4": (SLICE4_OUT, ("terrain", "gait_b6", "gait_b4", "sweep",
                                  "ekf")),
          "slice5": (SLICE5_OUT, ("footstep", "pid", "support", "pose",
                                  "schedule", "advance")),
-         "slice6": (SLICE6_OUT, ("runtime",))}
+         "slice6": (SLICE6_OUT, ("runtime",)),
+         "slice7": (SLICE7_OUT, ("messages", "item6", "logging"))}
 
 
 def make_references(sections) -> dict:

@@ -9,7 +9,8 @@ bundled library (``api/action_loader.py``), and the console
   ``tests/data/torch_port_slice5_refs.npz``; both sides build it in
   float64 numpy and round to float32 once).
 * The registry lists what the JAX registry lists; python, launch and
-  combined-YAML actions are listed and refuse to compile.
+  combined-YAML actions are listed and refuse to compile to a schedule
+  (the action loader runs them).
 * ``list-actions`` / ``list-collections`` print the JAX console's lines;
   ``preview --device cpu`` prints its JSON line, whose final pose is the
   committed JAX preview's (``tests/data/torch_port_preview_golden.npz``)
@@ -145,7 +146,7 @@ def test_registry_lists_the_jax_registry():
                                        "standup_then_rotate"])
 def test_unported_action_types_refuse_to_compile(action_id):
     sim = _stance()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="through ActionLoader"):
         action_loader.default_registry().compile(
             action_id, sim.robot.base.position, sim.robot.base.quaternion,
             sim.feet_world, device="cpu")

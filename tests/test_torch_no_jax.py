@@ -1,11 +1,16 @@
 """The PyTorch port, its GPU smoke script and its realtime measurement
 script import neither JAX nor the JAX package: every ``.py`` file of
-``quadruped_locomotion_tpu_torch/``, ``chip_smoke.py`` and
-``scripts/measure_realtime_torch.py`` is parsed and its imports checked."""
+``quadruped_locomotion_tpu_torch/`` (its copy of the bundled python
+action included), ``chip_smoke.py`` and ``scripts/measure_realtime_torch.py``
+is parsed and its imports checked; and the port's action loader runs the
+bundled python action in a fresh process without JAX being imported."""
 
 from __future__ import annotations
 
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -39,3 +44,27 @@ def test_scan_sees_the_package():
     # the check itself: the port's own name is not mistaken for the JAX one
     assert not _banned("quadruped_locomotion_tpu_torch.ops")
     assert _banned("quadruped_locomotion_tpu.ops.qp") and _banned("jax.numpy")
+
+
+LOADER_CHECK = """
+import sys
+from quadruped_locomotion_tpu_torch.api.action_loader import ActionLoader
+loader = ActionLoader(device="cpu")
+act = loader.send_action("velocity_trot")
+assert type(act).__name__ == "VelocityTrotAction", act
+assert act.state == 2 and loader.server._active == 1  # PENDING, one row
+bad = sorted(m for m in sys.modules if m.split(".")[0] in {banned})
+assert not bad, bad
+print("no jax")
+"""
+
+
+def test_loader_runs_the_bundled_python_action_without_jax():
+    """In a subprocess (this test session imports JAX): the registry's
+    python action resolves to the port's copy, which the loader runs."""
+    code = LOADER_CHECK.format(banned=set(BANNED))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "no jax"
