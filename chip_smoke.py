@@ -150,6 +150,30 @@ Phases, each of which raises (exit code 1) when a gate fails:
    launches per planner tick. (c) Its ``--plot`` PNG exists and is not
    empty. Prints ms per server tick and per trot tick.
 
+16. Data parallelism over the scenario batch (``parallel/``). (a) A
+   world of one in this process (NCCL): ``make_sharded_qp_sweep`` at
+   B = 4096 equal bit for bit to one whole-batch
+   ``solve_weighted_ls_fd_qp``, its KKT equal to the instances' maximum,
+   its wrench error to the local mean (rtol 1e-6), one kernel launch per
+   call; ``make_sharded_locomotion_rollout`` at B = 4096 for 5 ticks
+   (articulated plant, the commands of ``__graft_entry__.py``) equal bit for bit to ``closed_loop.rollout`` on
+   the same inputs, 4 launches per tick, upright >= 0.99, KKT finite;
+   ``make_sharded_rollout`` at B = 1024 for 3 steps finite and equal bit
+   for bit to ``balance_update`` + ``simulator.step`` on the whole batch.
+   (b) Two ranks on the card (gloo, spawned; NCCL refuses two ranks on one
+   GPU): the sweep's gathered solutions and the pod mesh's (shape (1, 2))
+   equal to (a)'s whole-batch solve bit for bit, one launch per rank; the
+   closed loop within ``__graft_entry__.py``'s sharded-vs-single gates of
+   (a)'s (base position 1e-4 m, joints 1e-3 rad, upright equal), 4
+   launches per tick per rank; ``measure_sharding_overhead`` recorded,
+   not gated (two ranks on one card are no scaling figure). (c)
+   ``python -m quadruped_locomotion_tpu_torch.bench --scaling`` as a
+   subprocess: exit 0, bench.py's scaling keys, efficiency 1.0 at one
+   device. (b) and (c) start once (a)'s sweep has been timed on the card
+   and run beside (a)'s rollouts. Prints ms per sharded sweep and tick
+   against the unsharded ones and the time of one world-1 NCCL
+   ``all_reduce``.
+
 Then ``python -m quadruped_locomotion_tpu_torch.bench --kernel-only`` runs
 as a subprocess: its last line must carry bench.py's headline keys and
 this card's name and power limit.
@@ -174,6 +198,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -932,18 +957,20 @@ WINDOW_TICKS = 20  # ticks of each closed-loop golden window
 def device_ops(fn):
     """Run ``fn`` under torch.profiler: (its result, the CUDA device ops
     it issued (kernels and copies), their summed device seconds, the
-    window's wall seconds)."""
+    window's wall seconds). Only the card's activity is recorded: parsing
+    the host's op events of one scripted tick took over a minute of
+    phase 12, and nothing reads them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (out, sum(e.count for e in ops),
+    return (out, len(ops),
             sum(e.self_device_time_total for e in ops) * 1e-6, wall)
 
 
@@ -1465,6 +1492,361 @@ def check_operator_api(device) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 16: data parallelism over the scenario batch
+# --------------------------------------------------------------------------
+
+PAR_RANKS = 2  # ranks sharing the card in phase 16b
+PAR_TICKS = 5  # planner ticks of the sharded closed loop
+PAR_RANK_TIMEOUT_S = 400.0
+PAR_BALANCE_BATCH = 1024
+PAR_BALANCE_STEPS = 3
+PAR_TARGET_NOISE = 0.02  # m, the balance rollout's target displacement
+PAR_POS_GATE = 1e-4  # m, __graft_entry__.py's sharded-vs-single gates
+PAR_Q_GATE = 1e-3  # rad
+PAR_REPS = 20  # timed sweeps
+SCALING_KEYS = ("metric", "value", "unit", "vs_baseline", "by_devices",
+                "device")
+
+
+def graft_commands(batch: int, seed: int = SEED):
+    """``__graft_entry__.py``'s sharded closed-loop commands: vx in
+    [-0.1, 0.3], vy in ±0.1, yaw rate in ±0.2 rad/s."""
+    rng = np.random.default_rng(seed)
+    lin = np.stack([rng.uniform(-0.1, 0.3, batch),
+                    rng.uniform(-0.1, 0.1, batch), np.zeros(batch)], axis=1)
+    return lin.astype(np.float32), rng.uniform(-0.2, 0.2, batch).astype(
+        np.float32)
+
+
+def parallel_inputs(device, batch: int) -> dict:
+    """Phase 16's inputs, made the same way in every process: the headline
+    QPs (B = 4096), the closed loop's standing start and commands
+    (B = 4096), the balance rollout's stance and displaced targets."""
+    from quadruped_locomotion_tpu_torch import headline
+    from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
+    from quadruped_locomotion_tpu_torch.types import BaseTarget, RobotModel
+
+    model = RobotModel.simpledog(device)
+    lin, wz = graft_commands(batch)
+    cmd = cl.Command(linear_velocity=torch.as_tensor(lin, device=device),
+                     yaw_rate=torch.as_tensor(wz, device=device))
+    ls0 = cl.init_locomotion(model, GaitParams.trot_defaults(device), batch,
+                             device=device)
+    sims = simlib.default_stance_state(model, height=0.4,
+                                       batch=(PAR_BALANCE_BATCH,))
+    noise = np.random.default_rng(SEED).uniform(
+        -PAR_TARGET_NOISE, PAR_TARGET_NOISE, (PAR_BALANCE_BATCH, 3))
+    target = BaseTarget.from_base(sims.robot.base)
+    target = target.replace(position=target.position + torch.as_tensor(
+        noise, dtype=torch.float32, device=device))
+    return dict(problem=headline.build_batch(batch, device), ls0=ls0, cmd=cmd,
+                sims=sims, targets=target)
+
+
+def _leaves(tree) -> list:
+    from quadruped_locomotion_tpu_torch.types import map_tensors
+
+    out = []
+    map_tensors(tree, out.append)
+    return out
+
+
+def trees_equal(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed(device, fn, *a):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn(*a)
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def world1_mesh(device):
+    """Phase 16a's mesh: a world of one in this process (NCCL on the card)."""
+    from quadruped_locomotion_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(device=device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if (mesh.backend, mesh.shape) != (backend, (1,)):
+        raise AssertionError(f"world-1 mesh: {mesh.backend} {mesh.shape}")
+    return mesh
+
+
+def check_world1_sweep(mesh, device, inp: dict) -> dict:
+    """Phase 16a's sweep against one whole-batch solve, and the card's
+    times of the sweep and of one ``all_reduce``."""
+    import torch.distributed as dist
+
+    from quadruped_locomotion_tpu_torch.model.kinematics import mv
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.parallel import distributed as pdist
+
+    per_call = 1 if device.type == "cuda" else 0  # kernel launches
+    A, b, S, W, D, d = prob = inp["problem"]
+    x_ref, _, _, kkt_ref = fk.solve_weighted_ls_fd_qp(A, S, b, W, D, d)
+    sweep = pdist.make_sharded_qp_sweep(mesh)
+    shard = pdist.shard_problem(mesh, prob)
+    n0 = fk.launches
+    sol, gkkt, gerr = sweep(*shard)
+    sweep_launches = fk.launches - n0
+    local_err = (mv(A, x_ref) - b).abs().amax(-1).mean()
+    res = {"sweep": dict(
+        launches=sweep_launches, x_equal=torch.equal(sol.x, x_ref),
+        kkt=float(gkkt), kkt_equal=bool(gkkt == kkt_ref.max()),
+        err=float(gerr), err_local=float(local_err),
+        ms_sharded=headline_ms(lambda: sweep(*shard)),
+        ms_unsharded=headline_ms(lambda: fk.solve_weighted_ls_fd_qp(
+            A, S, b, W, D, d)))}
+    one = torch.zeros(2, device=device)
+    res["all_reduce_ms"] = headline_ms(
+        lambda: dist.all_reduce(one, group=mesh.group), reps=100)
+    log(f"parallel world 1 sweep B={A.shape[0]}: " + json.dumps(res))
+    if not (res["sweep"]["x_equal"] and res["sweep"]["kkt_equal"]
+            and sweep_launches == per_call):
+        raise AssertionError(f"world-1 sharded sweep: {res['sweep']}")
+    if not abs(res["sweep"]["err"] - res["sweep"]["err_local"]) <= (
+            1e-6 * abs(res["sweep"]["err_local"])):
+        raise AssertionError(f"world-1 sweep error: {res['sweep']}")
+    res["x_ref"] = x_ref.cpu().numpy()
+    return res
+
+
+def check_world1_rollouts(mesh, device, inp: dict) -> dict:
+    """Phase 16a's closed loop and balance rollout against their unsharded
+    runs, both timed warm on the host clock."""
+    from quadruped_locomotion_tpu_torch.control.balance_controller import balance_update
+    from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
+    from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.parallel import mesh as pmesh
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
+    from quadruped_locomotion_tpu_torch.types import CfdParams, RobotModel, VmcGains
+
+    per_call = 1 if device.type == "cuda" else 0
+    ticks = PAR_TICKS
+    model = RobotModel.simpledog(device)
+    params = ControllerParams.defaults(device)
+    gp = GaitParams.trot_defaults(device)
+    cl.rollout(model, params, gp, inp["ls0"], inp["cmd"], 1, device=device)
+    loco = pmesh.make_sharded_locomotion_rollout(mesh, ticks)
+    n0 = fk.launches
+    (fin, kkt, up), wall = _timed(
+        device, loco, pmesh.shard_batch(mesh, inp["ls0"]),
+        pmesh.shard_batch(mesh, inp["cmd"]))
+    loco_launches = fk.launches - n0
+    (ref, tel), wall_ref = _timed(device, lambda: cl.rollout(
+        model, params, gp, inp["ls0"], inp["cmd"], ticks, device=device))
+    res = {"loco": dict(
+        ticks=ticks, launches=loco_launches, upright=float(up),
+        kkt=float(kkt), equal=trees_equal(fin, ref),
+        kkt_equal=bool(kkt == tel["qp_kkt"].amax()),
+        ms_per_tick_sharded=wall / ticks * 1e3,
+        ms_per_tick_unsharded=wall_ref / ticks * 1e3)}
+    log(f"parallel world 1 closed loop B={BATCH} (beside 16b and 16c): "
+        + json.dumps(res["loco"]))
+    if not (res["loco"]["equal"] and res["loco"]["kkt_equal"]
+            and loco_launches == ticks * cl.CONTROL_SUBSTEPS * per_call
+            and res["loco"]["upright"] >= 0.99
+            and np.isfinite(res["loco"]["kkt"])):
+        raise AssertionError(f"world-1 sharded closed loop: {res['loco']}")
+
+    gains, cfd = VmcGains.gazebo_defaults(device), CfdParams.defaults(device)
+    balance_update(model, gains, cfd, inp["sims"].robot, inp["targets"],
+                   qp_iters=15)  # warm
+    roll = pmesh.make_sharded_rollout(mesh, PAR_BALANCE_STEPS)
+    (fin_b, err_b, kkt_b), wall_b = _timed(
+        device, roll, pmesh.shard_batch(mesh, inp["sims"]),
+        pmesh.shard_batch(mesh, inp["targets"]))
+    s = inp["sims"]
+    t0 = time.perf_counter()
+    for _ in range(PAR_BALANCE_STEPS):
+        tau, _ = balance_update(model, gains, cfd, s.robot, inp["targets"],
+                                qp_iters=15)
+        s = simlib.step(model, s, tau, 0.0025)
+    _sync(device)
+    res["balance"] = dict(
+        batch=PAR_BALANCE_BATCH, steps=PAR_BALANCE_STEPS,
+        err=float(err_b), kkt=float(kkt_b), equal=trees_equal(fin_b, s),
+        ms_per_step_sharded=wall_b / PAR_BALANCE_STEPS * 1e3,
+        ms_per_step_unsharded=(time.perf_counter() - t0)
+        / PAR_BALANCE_STEPS * 1e3)
+    log("parallel world 1 balance rollout (beside 16b and 16c): "
+        + json.dumps(res["balance"]))
+    if not (res["balance"]["equal"] and np.isfinite(res["balance"]["err"])
+            and np.isfinite(res["balance"]["kkt"])):
+        raise AssertionError(f"world-1 sharded balance rollout: "
+                             f"{res['balance']}")
+    res.update(pos_ref=ref.sim.robot.base.position.cpu().numpy(),
+               q_ref=ref.sim.robot.q.cpu().numpy(), upright_ref=float(up))
+    return res
+
+
+def headline_ms(fn, reps: int = PAR_REPS) -> float:
+    """Mean ms of ``fn`` on the card (CUDA events, after a warm call)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def parallel_rank(rank: int, batch: int, ticks: int, device: str) -> dict:
+    """Phase 16b, one of two ranks on ``device`` (gloo). Its closed loop is
+    timed cold: the first tick is in its ms per tick."""
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.parallel import distributed as pdist
+    from quadruped_locomotion_tpu_torch.parallel import mesh as pmesh
+    from quadruped_locomotion_tpu_torch.types import full_f32_matmuls
+
+    full_f32_matmuls()
+    device = torch.device(device)
+    inp = parallel_inputs(device, batch)
+    prob = inp["problem"]
+    fk.launches = fk.wls_launches = 0
+    mesh = pmesh.make_mesh(device=device)
+    pod = pdist.make_pod_mesh(device=device)
+    sol, gkkt, gerr = pdist.make_sharded_qp_sweep(mesh)(
+        *pdist.shard_problem(mesh, prob))
+    out = {"sweep_launches": fk.launches, "mesh": mesh.shape,
+           "pod": pod.shape, "backend": mesh.backend}
+    x = pmesh.gather_batch(mesh, sol.x)
+    sol_p, _, _ = pdist.make_sharded_qp_sweep(pod)(
+        *pdist.shard_problem(pod, prob))
+    xp = pmesh.gather_batch(pod, sol_p.x)
+    ls0, cmd = (pmesh.shard_batch(mesh, inp[k]) for k in ("ls0", "cmd"))
+    loco = pmesh.make_sharded_locomotion_rollout(mesh, ticks)
+    n0 = fk.launches
+    (fin, kkt, up), wall = _timed(device, loco, ls0, cmd)
+    out.update(loco_launches=fk.launches - n0, kkt=float(kkt), upright=float(up))
+    fin = pmesh.gather_batch(mesh, fin)
+    ms = pmesh.gather_batch(mesh, torch.tensor([wall / ticks * 1e3],
+                                               device=device))
+    half = tuple(t[:batch // PAR_RANKS] for t in prob)
+    out["overhead"] = pdist.measure_sharding_overhead(half, mesh=mesh)
+    out.update(launches=fk.launches, wls_launches=fk.wls_launches,
+               ms_per_tick_ranks=ms.cpu().tolist())
+    if rank == 0:  # numpy: the results travel to the parent pickled
+        out.update(x=x.cpu().numpy(), x_pod=xp.cpu().numpy(),
+                   pos=fin.sim.robot.base.position.cpu().numpy(),
+                   q=fin.sim.robot.q.cpu().numpy(), kkt_global=float(gkkt),
+                   err_global=float(gerr))
+    return out
+
+
+def run_parallel_ranks(device, batch: int) -> tuple[list, float]:
+    """Phase 16b's two ranks, spawned on the card; their results and the
+    wall seconds they took."""
+    from quadruped_locomotion_tpu_torch.parallel import distributed as pdist
+
+    t0 = time.perf_counter()
+    dev = str(device) if device.type == "cpu" else "cuda:0"
+    ranks = pdist.run_local_ranks(parallel_rank, PAR_RANKS,
+                                  (batch, PAR_TICKS, dev), device=dev,
+                                  timeout=PAR_RANK_TIMEOUT_S)
+    return ranks, time.perf_counter() - t0
+
+
+def check_parallel_ranks(device, ranks: list, wall_s: float, ref: dict) -> dict:
+    """Phase 16b's gates: the two ranks against phase 16a."""
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+
+    per_call = 1 if device.type == "cuda" else 0
+    r0 = ranks[0]
+    res = dict(
+        wall_s=wall_s, backend=r0["backend"], mesh=r0["mesh"], pod=r0["pod"],
+        sweep_launches=[r["sweep_launches"] for r in ranks],
+        loco_launches=[r["loco_launches"] for r in ranks],
+        x_equal=bool(np.array_equal(r0["x"], ref["x_ref"])),
+        x_pod_equal=bool(np.array_equal(r0["x_pod"], ref["x_ref"])),
+        dpos=float(np.abs(r0["pos"] - ref["pos_ref"]).max()),
+        dq=float(np.abs(r0["q"] - ref["q_ref"]).max()),
+        upright=r0["upright"], upright_ref=ref["upright_ref"],
+        kkt=r0["kkt"], ms_per_tick_ranks_cold=r0["ms_per_tick_ranks"],
+        overhead=r0["overhead"],
+        launches=sum(r["launches"] for r in ranks),
+        wls_launches=sum(r["wls_launches"] for r in ranks))
+    log("parallel two ranks on the card: " + json.dumps(res))
+    if not (res["x_equal"] and res["x_pod_equal"]
+            and res["sweep_launches"] == [per_call] * PAR_RANKS):
+        raise AssertionError(f"two-rank sweep: {res}")
+    if not (res["dpos"] < PAR_POS_GATE and res["dq"] < PAR_Q_GATE
+            and res["upright"] == res["upright_ref"]
+            and np.isfinite(res["kkt"])
+            and res["loco_launches"]
+            == [PAR_TICKS * cl.CONTROL_SUBSTEPS * per_call] * PAR_RANKS):
+        raise AssertionError(f"two-rank closed loop: {res}")
+    return res
+
+
+def run_scaling_entry() -> tuple[subprocess.CompletedProcess, float]:
+    """Phase 16c: ``python -m quadruped_locomotion_tpu_torch.bench
+    --scaling`` as a subprocess on the one card, and its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "quadruped_locomotion_tpu_torch.bench",
+         "--scaling"], capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    return proc, time.perf_counter() - t0
+
+
+def check_scaling_entry(card: str, proc, wall_s: float) -> dict:
+    """Phase 16c's gates: exit 0, bench.py's scaling keys, efficiency 1.0."""
+    if proc.returncode != 0:
+        raise AssertionError(f"bench --scaling exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"bench --scaling ({wall_s:.1f} s, beside 16a and 16b): "
+        + json.dumps(line))
+    if set(line) != set(SCALING_KEYS) or line["value"] != 1.0 or (
+            line["device"] != card) or [r["devices"] for r in
+                                        line["by_devices"]] != [1]:
+        raise AssertionError(f"bench --scaling line: {line}")
+    return line
+
+
+def check_parallel(device, card: str) -> dict:
+    """Phase 16: (a) a world of one in this process; (b) two ranks and (c)
+    the bench entry, started in threads once (a)'s sweep has been timed on
+    the card, run beside the rest of (a), whose rollouts are host-bound:
+    (b) and (c) spend most of their time starting their processes."""
+    import torch.distributed as dist
+
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+
+    inp = parallel_inputs(device, BATCH)
+    fk.launches = fk.wls_launches = 0
+    with ThreadPoolExecutor(2) as pool:
+        mesh = world1_mesh(device)
+        try:
+            w1 = check_world1_sweep(mesh, device, inp)
+            ranks = pool.submit(run_parallel_ranks, device, BATCH)
+            entry = pool.submit(run_scaling_entry)
+            w1.update(check_world1_rollouts(mesh, device, inp))
+        finally:
+            dist.destroy_process_group()
+        w1_launches, w1_wls = fk.launches, fk.wls_launches
+        two = check_parallel_ranks(device, *ranks.result(), w1)
+        line = check_scaling_entry(card, *entry.result())
+    return dict(launches=w1_launches + two["launches"],
+                wls_launches=w1_wls + two["wls_launches"], scaling=line)
+
+
 BENCH_HEADLINE_KEYS = (
     "metric", "value", "unit", "vs_baseline", "chain_per_dispatch",
     "batch_time_ms", "single_dispatch_solves_per_s", "single_dispatch_ms",
@@ -1568,6 +1950,7 @@ def main() -> int:
     man = timed("manager", check_manager, device)
     timed("realtime", check_realtime, args.rt_seconds)
     op = timed("operator_api", check_operator_api, device)
+    par = timed("parallel", check_parallel, device, card)
     timed("bench_entry", check_bench_entry, card)
     if dump is not None:
         args.dump.parent.mkdir(parents=True, exist_ok=True)
@@ -1577,7 +1960,7 @@ def main() -> int:
                 + lf["launches"] + a["launches"] + lat["launches"]
                 + sw["launches"] + est["kernel_launches"]
                 + pre["kernel_launches"] + scr["kernel_launches"]
-                + man["kernel_launches"] + op["launches"])
+                + man["kernel_launches"] + op["launches"] + par["launches"])
     log("phase wall seconds: " + json.dumps(phase_s)
         + f"; whole script {time.perf_counter() - t_start:.1f} s")
     record = {"kernels": [{
@@ -1597,7 +1980,8 @@ def main() -> int:
         "route": "cuda",
         "source": "quadruped_locomotion_tpu_torch/csrc/fd_qp_ipm.cu",
         "replaces": "quadruped_locomotion_tpu/ops/qp_pallas.py:651",
-        "launches": h["wls_launches"] + lf["wls_launches"],
+        "launches": h["wls_launches"] + lf["wls_launches"]
+        + par["wls_launches"],
         "max_abs_err": h["max_abs_err_x"],
         "ms": h["single_dispatch_ms"],
         "plain_ms": h["ms_plain"],

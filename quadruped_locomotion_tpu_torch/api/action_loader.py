@@ -3,13 +3,11 @@
 
 Declaration files keep the reference's schema (``actions/*.yaml``,
 ``collections/*.yaml`` under a root, or a bare directory of motion
-scripts). :func:`default_registry` reads the JAX package's bundled
-action library and motion scripts in place, by path, as data: they are
-framework-free YAML, shared by both packages rather than copied. The one
-exception is the library's python action, which imports the JAX
-package: the port keeps its own copy under ``action_library/`` here, and
-the registry resolves the bundled python action ids to it
-(:meth:`ActionRegistry.python_action_file`).
+scripts). :func:`default_registry` reads the port's own bundled action
+library (``action_library/`` here) and, through its relative ``file:``
+paths, the port's ``motion_scripts/``: copies of the JAX package's files,
+byte for byte, apart from the python action, whose port imports this
+package instead of the JAX one.
 
 :meth:`ActionRegistry.compile` turns a YAML motion script into a
 :class:`StepSchedule` for the closed loop (``rollout/script_loop.py``) or
@@ -30,13 +28,8 @@ import yaml
 from ..planning.steps import StepSchedule
 from . import actions as actions_mod
 
-# the bundled library: data files of the JAX package, read in place
-BUNDLED_LIBRARY = (Path(os.path.abspath(__file__)).parents[2]
-                   / "quadruped_locomotion_tpu" / "api" / "action_library")
-# the port's copies of the bundled library's python actions, by action id
-PORT_LIBRARY = Path(os.path.abspath(__file__)).parent / "action_library"
-BUNDLED_PYTHON_ACTIONS = {
-    "velocity_trot": PORT_LIBRARY / "python_actions" / "velocity_trot.py"}
+# the bundled action library
+BUNDLED_LIBRARY = Path(os.path.abspath(__file__)).parent / "action_library"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,16 +145,6 @@ class ActionRegistry:
         return actions_mod.load_action(entry.file, base_pos, base_quat,
                                        feet_world, device=device)
 
-    def python_action_file(self, action_id: str) -> str:
-        """The script a python action runs: the port's copy for the
-        bundled library's python actions, else the declared file."""
-        entry = self.actions[action_id]
-        bundled = os.path.normpath(BUNDLED_LIBRARY / "python_actions")
-        if (action_id in BUNDLED_PYTHON_ACTIONS
-                and os.path.dirname(entry.file) == bundled):
-            return str(BUNDLED_PYTHON_ACTIONS[action_id])
-        return entry.file
-
     def compile_sequence(self, collection_id: str, base_pos, base_quat,
                          feet_world, device=None) -> list[StepSchedule]:
         """The schedules of a sequence collection, in order, all compiled
@@ -226,8 +209,7 @@ class ActionLoader:
             act.set_goal_from_file(entry.file)
             self.action = act
         elif entry.type == "python":
-            self.action = self._load_python_action(
-                self.registry.python_action_file(action_id))
+            self.action = self._load_python_action(entry.file)
         elif entry.type == "launch":
             self.action = A.SubprocessAction(self.server, [entry.file])
         else:  # filtered at discovery

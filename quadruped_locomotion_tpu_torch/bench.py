@@ -6,6 +6,8 @@ card's name and power limit (``nvidia-smi``), or ``"cpu"``.
     python -m quadruped_locomotion_tpu_torch.bench --latency [ticks]
     python -m quadruped_locomotion_tpu_torch.bench --sweep [batch]
     python -m quadruped_locomotion_tpu_torch.bench --roofline [batch]
+    python -m quadruped_locomotion_tpu_torch.bench --scaling [batch]
+    torchrun --nproc_per_node=N -m quadruped_locomotion_tpu_torch.bench --scaling [batch]
 
 * headline (default, batch 4096): batched force-distribution QP solves
   per second through the CUDA kernel (``headline.measure``: a CUDA-graph
@@ -20,12 +22,16 @@ card's name and power limit (``nvidia-smi``), or ``"cpu"``.
 * ``--roofline [batch]`` (4096): the kernel's achieved float32 rate
   against the H100's 67 TFLOP/s, from the algorithm's operation count
   (``fd_qp_kernel.weighted_ls_fd_qp_flops``) and the timed solves.
-* ``--scaling`` waits for the port of the JAX package's ``parallel/``
-  (ROADMAP A12): it exits with code 2 and prints no JSON.
+* ``--scaling [batch]`` (4096 per card): weak scaling of the sharded QP
+  sweep (``parallel/distributed.py::measure_scaling``, the kernel inside
+  every shard) over 1, 2 and all the ranks that torchrun started, one per
+  card; alone it is one rank on one card and reports efficiency 1.0. Rank
+  0 prints the line, with every device count's figures under
+  ``"by_devices"``.
 
 Every mode runs on the card and raises where CUDA is absent; the
-functions below take ``device="cpu"`` for the latency and sweep modes
-(host clock), while the headline and the roofline time the card and raise
+functions below take ``device="cpu"`` for the latency, sweep and
+scaling modes (host clock), while the headline and the roofline time the card and raise
 off it. Nothing here catches a failure.
 """
 
@@ -41,6 +47,8 @@ import torch
 
 BASELINE_SOLVES_PER_S = 10_000.0  # bench.py's north-star bar
 BUDGET_MS = 2.5  # the 400 Hz reference loop
+SCALING_BAR = 0.85  # bench.py's weak-scaling efficiency bar
+SCALING_REPS = 10  # timed sweeps per device count (bench.py's)
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 LATENCY_CHUNK = 25  # planner ticks per timed chunk (bench.py's)
 
@@ -239,6 +247,59 @@ def roofline_record(res: dict) -> dict:
     }
 
 
+def scaling_measure(batch: int, iters: int = 15, device=None) -> dict:
+    """``measure_scaling`` of the sharded QP sweep with ``batch`` headline
+    QPs per rank: joins torchrun's process group if there is one, else
+    runs as a world of one in this process. ``device`` defaults to
+    ``cuda:$LOCAL_RANK``."""
+    from . import headline
+    from .parallel import distributed as pdist
+    from .parallel.mesh import rank_device
+    from .types import full_f32_matmuls
+
+    dev = rank_device(device)
+    full_f32_matmuls()
+    pdist.initialize_multihost(device=dev)
+    problem = headline.build_batch(batch, dev)
+    return pdist.measure_scaling(problem, iters=iters, reps=SCALING_REPS,
+                                 backend="auto", device=dev)
+
+
+def scaling_record(res: dict) -> dict:
+    """bench.py's scaling keys for the largest device count, plus
+    ``"by_devices"``: every count's figures, which bench.py prints only
+    to stderr."""
+    top = res[max(res)]
+    return {
+        "metric": f"QP sweep weak-scaling efficiency ({max(res)} devices)",
+        "value": top["efficiency"],
+        "unit": "fraction",
+        "vs_baseline": top["efficiency"] / SCALING_BAR,
+        "by_devices": [res[n] for n in sorted(res)],
+    }
+
+
+def scaling_main(batch: int, iters: int) -> int:
+    """``--scaling``: every rank measures, rank 0 prints the line."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import rank_device
+
+    res = scaling_measure(batch, iters)
+    rank = dist.get_rank()
+    dist.destroy_process_group()
+    if rank != 0:
+        return 0
+    for n, r in sorted(res.items()):
+        print(f"devices={n} solves/s={r['solves_per_s']:.1f} "
+              f"efficiency={r['efficiency']:.3f} max_kkt={r['max_kkt']:.2e}",
+              file=sys.stderr)
+    record = scaling_record(res)
+    record["device"] = device_line(rank_device())
+    print(json.dumps(record))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     """bench.py's command line; prints one JSON line and returns 0."""
     from . import headline
@@ -251,10 +312,7 @@ def main(argv: list[str] | None = None) -> int:
         if a.startswith("--iters="):
             iters = int(a.split("=")[1])
     if "--scaling" in argv:
-        print("bench --scaling: data parallelism over several cards is not "
-              "ported yet (ROADMAP.md queue 1, A12: parallel/mesh.py and "
-              "parallel/distributed.py)", file=sys.stderr)
-        return 2
+        return scaling_main(int(nums[0]) if nums else 4096, iters)
     dev = resolve_device(None)
     if "--latency" in argv:
         ticks = int(nums[0]) if nums else 400

@@ -8,8 +8,8 @@ origins, axes, limits and dynamics) and a chain extractor that maps a
     haa (Rz) → Rx(-π/2) → hfe (Rz) → (l1, 0, d) → kfe (Rz) → (l2, 0, 0) → foot
 
 Parsing is numpy on the host; the model's tensors are made once on the
-requested device. :data:`SIMPLEDOG_URDF` is the JAX package's bundled
-``assets/simpledog.urdf``, read in place as data; it round-trips to
+requested device. :data:`SIMPLEDOG_URDF` is the port's copy of the
+bundled ``assets/simpledog.urdf``; it round-trips to
 :meth:`RobotModel.simpledog`.
 """
 
@@ -25,8 +25,8 @@ import torch
 
 from ..types import DEFAULT_LIMB_CONFIG, IK_BRANCH, RobotModel, resolve_device
 
-SIMPLEDOG_URDF = str(Path(__file__).resolve().parents[2]
-                     / "quadruped_locomotion_tpu" / "assets" / "simpledog.urdf")
+SIMPLEDOG_URDF = str(Path(__file__).resolve().parents[1] / "assets"
+                     / "simpledog.urdf")
 
 # canonical leg order (TypeDefs.hpp LimbEnum): LF, RF, RH, LH —
 # identified from hip-origin signs (+x+y, +x-y, -x-y, -x+y).

@@ -118,7 +118,11 @@ def build_kernel() -> KernelBuild:
                 f"nvcc failed with code {proc.returncode}:\n"
                 f"{proc.stdout}{proc.stderr}"
             )
-        log_path.write_text(proc.stdout + proc.stderr)
+        # both renames are atomic: a process that finds the library (ranks
+        # of one host may build at once) finds its whole log beside it
+        tmp_log = tmp.with_suffix(".log")
+        tmp_log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp_log, log_path)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.fd_qp_ipm.argtypes = [ctypes.c_void_p] * 8 + [

@@ -78,17 +78,23 @@ def full_f32_matmuls() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def _map_tensors(obj, fn):
+def map_tensors(obj, fn):
+    """``fn`` applied to every tensor leaf of a tree of dataclasses,
+    NamedTuples, tuples, lists and dicts; other leaves pass through."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(
             obj,
-            **{f.name: _map_tensors(getattr(obj, f.name), fn)
+            **{f.name: map_tensors(getattr(obj, f.name), fn)
                for f in dataclasses.fields(obj)},
         )
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(_map_tensors(v, fn) for v in obj))
+        return type(obj)(*(map_tensors(v, fn) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(map_tensors(v, fn) for v in obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
     return obj
 
 
@@ -110,7 +116,7 @@ class TensorStruct:
         return dataclasses.replace(self, **changes)
 
     def to(self, device):
-        return _map_tensors(self, lambda t: t.to(device))
+        return map_tensors(self, lambda t: t.to(device))
 
 
 def _f(x, dtype, device):

@@ -73,6 +73,18 @@ JAX outputs of ``tests/test_torch_runtime.py``: ``runtime/``, the JAX
 standing for 400 ticks, ``balance_update`` on five of its samples, and
 the single-leg and freeze controllers' torques.
 
+The slice-8 file (``tests/data/torch_port_slice8_refs.npz``) holds the
+inputs and JAX outputs of ``tests/test_torch_parallel.py``: ``parallel/``,
+the JAX package's ``parallel/`` on an 8-device mesh (XLA:CPU's virtual
+devices, as ``tests/conftest.py`` sets them): ``make_sharded_qp_sweep``
+(the XLA backend, 15 iterations) on ``bench.build_batch(16)``; the kernel
+trace ``solve_weighted_ls_fd_qp(emulate=True)`` (15 iterations) on
+``bench.build_batch(64)`` (one instance's trace does not depend on its
+device or its neighbours: ``tests/test_parallel.py``); ``make_sharded_rollout``
+(3 steps) from the default stance toward seeded displaced targets; and
+``make_sharded_locomotion_rollout`` (3 ticks, XLA backend) from the
+standing start under the seed-0 commands of ``__graft_entry__.py``.
+
 The slice-7 file (``tests/data/torch_port_slice7_refs.npz``) holds the
 JAX outputs of ``tests/test_torch_{messages,utils}.py``: ``messages/``,
 ``to_json`` of the goals of :func:`slice7_goals` and of the feedback,
@@ -84,7 +96,7 @@ stateless ``contact_fsm``, ``spd_solve``, ``rollout(telemetry_fn=)``) on
 seeded inputs; ``logging/``, the ring log's capture order.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_references.py \\
-        [--file slice2|fd_qp|slice4|slice5|slice6|slice7|all]
+        [--file slice2|fd_qp|slice4|slice5|slice6|slice7|slice8|all]
 
 Takes about two minutes per file on a CPU, most of it XLA compilation and
 the eager kernel trace. The tests recompute each section live under
@@ -108,6 +120,7 @@ SLICE4_OUT = os.path.join(DATA, "torch_port_slice4_refs.npz")
 SLICE5_OUT = os.path.join(DATA, "torch_port_slice5_refs.npz")
 SLICE6_OUT = os.path.join(DATA, "torch_port_slice6_refs.npz")
 SLICE7_OUT = os.path.join(DATA, "torch_port_slice7_refs.npz")
+SLICE8_OUT = os.path.join(DATA, "torch_port_slice8_refs.npz")
 CHIP_QPS = os.path.join(DATA, "torch_port_chip_qps.npz")
 
 TILE = 1024  # one (8, 128) tile of the JAX kernel trace
@@ -1601,6 +1614,95 @@ def logging_references() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 8: the parallel layer
+# --------------------------------------------------------------------------
+
+PAR_DEVICES = 8  # the JAX mesh: tests/conftest.py's virtual CPU devices
+PAR_B = 16  # the sweep's, the balance rollout's and the closed loop's batch
+PAR_KERNEL_B = 64  # the kernel trace's batch (tests/test_parallel.py's)
+PAR_STEPS = 3  # balance-rollout steps
+PAR_TICKS = 3  # closed-loop planner ticks
+PAR_TARGET_NOISE = 0.02  # m, the balance rollout's target displacement
+
+
+def graft_commands(batch: int, seed: int = 0) -> dict:
+    """``__graft_entry__.py``'s closed-loop commands: vx in [-0.1, 0.3],
+    vy in ±0.1, yaw rate in ±0.2 rad/s from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    lin = np.stack([rng.uniform(-0.1, 0.3, batch),
+                    rng.uniform(-0.1, 0.1, batch), np.zeros(batch)], axis=1)
+    return {"linear_velocity": lin.astype(np.float32),
+            "yaw_rate": rng.uniform(-0.2, 0.2, batch).astype(np.float32)}
+
+
+def parallel_references() -> dict:
+    """``inputs/``: the sweep's and the kernel's problems, the balance
+    rollout's start and targets, the closed loop's start and commands;
+    the JAX package's sharded outputs on them (see the module docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, ROOT)
+    import bench
+    from quadruped_locomotion_tpu.gait.phase import GaitParams
+    from quadruped_locomotion_tpu.ops import qp_pallas
+    from quadruped_locomotion_tpu.parallel import distributed as dist
+    from quadruped_locomotion_tpu.parallel import mesh as pmesh
+    from quadruped_locomotion_tpu.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu.rollout import simulator as simlib
+    from quadruped_locomotion_tpu.types import BaseTarget, RobotModel
+
+    mesh = pmesh.make_mesh(PAR_DEVICES)
+    tile = lambda t, n: jax.tree_util.tree_map(  # noqa: E731
+        lambda x: jnp.broadcast_to(x, (n,) + x.shape), t)
+    out = {}
+
+    prob = bench.build_batch(PAR_B)
+    out.update({f"inputs/sweep/{k}": v for k, v in zip("AbSWDd", prob)})
+    sweep = dist.make_sharded_qp_sweep(mesh, iters=FD_ITERS)
+    sol, kkt, err = sweep(*dist.shard_problem(mesh, prob))
+    out.update({"sweep/x": sol.x, "sweep/kkt": sol.kkt_error,
+                "sweep/global_kkt": kkt, "sweep/global_err": err})
+
+    A, b, S, W, D, d = bench.build_batch(PAR_KERNEL_B)
+    out.update({f"inputs/kernel/{k}": v
+                for k, v in zip("AbSWDd", (A, b, S, W, D, d))})
+    x, _, _, kkt = qp_pallas.solve_weighted_ls_fd_qp(
+        A, S, b, W, D, d, iters=FD_ITERS, emulate=True)
+    out.update({"kernel/x": x, "kernel/kkt": kkt})
+
+    model = RobotModel.simpledog()
+    sims = tile(simlib.default_stance_state(model, height=0.4), PAR_B)
+    targets = BaseTarget.from_base(sims.robot.base)
+    noise = np.random.default_rng(8).uniform(
+        -PAR_TARGET_NOISE, PAR_TARGET_NOISE, (PAR_B, 3)).astype(np.float32)
+    targets = targets.replace(position=targets.position + noise)
+    out.update({f"inputs/sims/{k}": v for k, v in _flatten(_tree(sims)).items()})
+    out.update({f"inputs/targets/{k}": v
+                for k, v in _flatten(_tree(targets)).items()})
+    roll = pmesh.make_sharded_rollout(mesh, steps=PAR_STEPS)
+    final, err, kkt = roll(pmesh.shard_batch(mesh, sims),
+                           pmesh.shard_batch(mesh, targets))
+    out.update({f"rollout/final/{k}": v
+                for k, v in _flatten(_tree(final)).items()})
+    out.update({"rollout/err": err, "rollout/kkt": kkt})
+
+    ls0 = tile(cl.init_locomotion(model, GaitParams.trot_defaults()), PAR_B)
+    cmds = cl.Command(**{k: jnp.asarray(v)
+                         for k, v in graft_commands(PAR_B).items()})
+    out.update({f"inputs/ls0/{k}": v for k, v in _flatten(_tree(ls0)).items()})
+    out.update({f"inputs/cmd/{k}": v for k, v in _flatten(_tree(cmds)).items()})
+    loco = pmesh.make_sharded_locomotion_rollout(mesh, PAR_TICKS,
+                                                 qp_backend="xla")
+    final, kkt, upright = loco(pmesh.shard_batch(mesh, ls0),
+                               pmesh.shard_batch(mesh, cmds))
+    out.update({f"loco/final/{k}": v
+                for k, v in _flatten(_tree(final)).items()})
+    out.update({"loco/kkt": kkt, "loco/upright": upright})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 SECTIONS = {"qp": qp_references, "headline": headline_references,
             "articulated": articulated_references,
             "fd_qp": fd_qp_references, "terrain": terrain_references,
@@ -1611,7 +1713,7 @@ SECTIONS = {"qp": qp_references, "headline": headline_references,
             "schedule": schedule_references, "advance": advance_references,
             "runtime": runtime_references,
             "messages": messages_references, "item6": item6_references,
-            "logging": logging_references}
+            "logging": logging_references, "parallel": parallel_references}
 FILES = {"slice2": (DEFAULT_OUT, ("qp", "headline", "articulated")),
          "fd_qp": (FD_QP_OUT, ("fd_qp",)),
          "slice4": (SLICE4_OUT, ("terrain", "gait_b6", "gait_b4", "sweep",
@@ -1619,7 +1721,8 @@ FILES = {"slice2": (DEFAULT_OUT, ("qp", "headline", "articulated")),
          "slice5": (SLICE5_OUT, ("footstep", "pid", "support", "pose",
                                  "schedule", "advance")),
          "slice6": (SLICE6_OUT, ("runtime",)),
-         "slice7": (SLICE7_OUT, ("messages", "item6", "logging"))}
+         "slice7": (SLICE7_OUT, ("messages", "item6", "logging")),
+         "slice8": (SLICE8_OUT, ("parallel",))}
 
 
 def make_references(sections) -> dict:
@@ -1635,6 +1738,12 @@ def main():
     ap.add_argument("--file", default="all", choices=(*FILES, "all"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
+    # the slice-8 mesh: tests/conftest.py's virtual devices (set before JAX
+    # starts; no other section depends on the device count)
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            f"{flags} --xla_force_host_platform_device_count={PAR_DEVICES}")
     for name, (path, sections) in FILES.items():
         if args.file not in (name, "all"):
             continue

@@ -127,13 +127,18 @@ def test_knot_counts_are_checked():
 
 
 def test_registry_lists_the_jax_registry():
-    from quadruped_locomotion_tpu.api.action_loader import (
-        default_registry as jax_registry,
-    )
+    """The same entries; each file the port's copy at the JAX package's
+    path relative to its ``api/`` directory."""
+    from quadruped_locomotion_tpu.api import action_loader as jax_loader
 
-    ours, theirs = action_loader.default_registry(), jax_registry()
-    assert [vars(a) for a in ours.list_actions()] == [
-        vars(a) for a in theirs.list_actions()]
+    ours, theirs = action_loader.default_registry(), jax_loader.default_registry()
+
+    def entries(reg, module):
+        api = Path(module.__file__).resolve().parent
+        return [{**vars(a), "file": Path(a.file).relative_to(api)}
+                for a in reg.list_actions()]
+
+    assert entries(ours, action_loader) == entries(theirs, jax_loader)
     assert [vars(c) for c in ours.list_collections()] == [
         vars(c) for c in theirs.list_collections()]
     assert ([a.id for a in ours.list_actions("walk_demo")]

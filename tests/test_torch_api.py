@@ -31,7 +31,7 @@ from quadruped_locomotion_tpu_torch import convert
 from quadruped_locomotion_tpu_torch.api import action as A
 from quadruped_locomotion_tpu_torch.api import messages as msgs
 from quadruped_locomotion_tpu_torch.api.action_loader import (
-    BUNDLED_PYTHON_ACTIONS, ActionLoader, default_registry,
+    BUNDLED_LIBRARY, ActionLoader, default_registry,
 )
 from quadruped_locomotion_tpu_torch.api.marker import MarkerSession, repl
 from quadruped_locomotion_tpu_torch.runtime.action_server import (
@@ -106,11 +106,12 @@ def test_loader_launch_action_matches_jax(golden):
 
 def test_python_actions_resolve_to_the_ports_copy():
     reg = default_registry()
-    assert reg.actions["velocity_trot"].type == "python"
-    path = reg.python_action_file("velocity_trot")
-    assert path == str(BUNDLED_PYTHON_ACTIONS["velocity_trot"])
-    assert "quadruped_locomotion_tpu_torch" in Path(path).parts
-    assert "from quadruped_locomotion_tpu." not in Path(path).read_text()
+    entry = reg.actions["velocity_trot"]
+    assert entry.type == "python"
+    path = Path(entry.file)
+    assert path == BUNDLED_LIBRARY / "python_actions" / "velocity_trot.py"
+    assert "quadruped_locomotion_tpu_torch" in path.parts
+    assert "from quadruped_locomotion_tpu." not in path.read_text()
 
 
 def test_sequence_chains_and_stops_on_an_unknown_id():

@@ -7,8 +7,8 @@ On the CPU the latency and sweep measurements run end to end on tiny
 inputs (B = 1 with 1-tick chunks; an 8-scenario, 1-tick sweep); the
 headline and the roofline time the card, so their records are built here
 from the same quality block on an 8-instance CPU batch, and their
-measurements must raise off the card. The entry itself runs on the card
-only. ``--scaling`` waits for ROADMAP A12.
+measurements must raise off the card; ``--scaling`` measures a world of
+one on the CPU. The entry itself runs on the card only.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import ast
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -67,7 +68,8 @@ def _with_device(record: dict, device: str = "cpu") -> dict:
 
 
 def test_bench_source_has_the_modes():
-    assert {"main", "latency_main", "sweep_main", "roofline_main"} <= set(BENCH_KEYS)
+    assert {"main", "latency_main", "sweep_main", "roofline_main",
+            "scaling_main"} <= set(BENCH_KEYS)
     assert {"metric", "value", "unit", "vs_baseline"} <= BENCH_KEYS["latency_main"]
 
 
@@ -143,14 +145,28 @@ def test_card_timings_raise_off_the_card():
         headline.measure(8, device="cpu")
 
 
-def test_scaling_waits_for_a12(capsys):
-    assert bench.main(["--scaling"]) == 2
-    out = capsys.readouterr()
-    assert out.out == "" and "A12" in out.err
+def test_scaling_mode_keys():
+    """``--scaling``'s measurement as a world of one on the CPU (an
+    in-process gloo group, taken down after): bench.py's scaling keys and
+    every count's figures, efficiency 1.0 at one device, a finite KKT."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    try:
+        res = bench.scaling_measure(8, iters=10, device="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert set(res) == {1} and res[1]["efficiency"] == 1.0
+    assert res[1]["solves_per_s"] > 0 and np.isfinite(res[1]["max_kkt"])
+    rec = _with_device(bench.scaling_record(res))
+    assert rec.pop("by_devices") == [res[1]]  # every count's figures
+    _check(rec, "scaling_main")
+    assert rec["value"] == 1.0 and rec["vs_baseline"] == pytest.approx(1 / 0.85)
 
 
 @pytest.mark.parametrize("argv", [["8"], ["--roofline", "8"], ["--sweep", "8"],
-                                  ["--latency", "25"]])
+                                  ["--latency", "25"], ["--scaling", "8"]])
 def test_every_mode_needs_the_card(monkeypatch, capsys, argv):
     """The entry runs on the card and raises without it; it prints no
     JSON line then."""
