@@ -210,6 +210,7 @@ EST_BATCH = 1024  # scenarios of the estimated loop
 LATENCY_DISPATCHES = 5  # one-planner-tick dispatches timed in phase 8
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
+KERNEL, WLS = "qp.kernel_launches", "qp.wls_launches"  # the launch counters
 
 
 def log(msg: str) -> None:
@@ -520,12 +521,13 @@ def check_main_path(batch: int, ticks: int, device, ms_kernel: float,
                     dump: dict | None = None):
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     args = setup_rollout(batch, device)
     with WorstQp(fk) as tap:
-        fk.launches = 0
+        counters[KERNEL] = 0
         tel, wall = run_rollout(args, ticks, device, plant="massless")
-        launches = fk.launches
+        launches = counters[KERNEL]
     want = ticks * cl.CONTROL_SUBSTEPS
     for k, v in tel.items():
         if v.is_floating_point() and not torch.isfinite(v).all():
@@ -562,9 +564,9 @@ def check_main_path(batch: int, ticks: int, device, ms_kernel: float,
     if not dpos <= 1e-3:
         raise AssertionError(f"plain and kernel rollouts differ by {dpos} m")
 
-    fk.launches = 0
+    counters[KERNEL] = 0
     tel_n, wall_n = run_rollout(args, 25, device, plant="none")
-    launches_none = fk.launches
+    launches_none = counters[KERNEL]
     if launches_none != 25 * cl.CONTROL_SUBSTEPS:
         raise AssertionError(f"plant='none' launched {launches_none} times")
     if not all(torch.isfinite(v).all() for v in tel_n.values()
@@ -596,14 +598,15 @@ def check_headline(batch: int, device, dump: dict | None) -> dict:
     from quadruped_locomotion_tpu_torch import headline
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.ops import qp
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
-    fk.launches = fk.wls_launches = 0
+    counters[KERNEL] = counters[WLS] = 0
     t0 = time.perf_counter()
     res = headline.measure(batch, device=device)
-    res.update(wall_s=time.perf_counter() - t0, launches=fk.launches,
-               wls_launches=fk.wls_launches)
+    res.update(wall_s=time.perf_counter() - t0, launches=counters[KERNEL],
+               wls_launches=counters[WLS])
     log(f"headline B={batch}: " + json.dumps(res))
-    if fk.launches != fk.wls_launches or fk.launches < headline.CHAIN:
+    if counters[KERNEL] != counters[WLS] or counters[KERNEL] < headline.CHAIN:
         raise AssertionError(f"headline launch counts {res}")
     if not (res["kkt_finite"] and res["chain_x_finite"]
             and res["kkt_p99"] <= 1e-4 and res["wrench_err_p50"] <= 0.1):
@@ -678,14 +681,14 @@ def check_load_factors(batch: int, device) -> dict:
     from quadruped_locomotion_tpu_torch.headline import cuda_ms
     from quadruped_locomotion_tpu_torch import headline
     from quadruped_locomotion_tpu_torch.control import force_distribution as fd
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     A, b, S, W, D, d, sup, lf = lf_batch(batch, device)
     solve = lambda backend, A, b, D, d, **kw: fd.solve_fd_qp_batched(  # noqa: E731
         A, b, S, W, D, d, backend=backend, **kw)
-    fk.launches = fk.wls_launches = 0
+    counters[KERNEL] = counters[WLS] = 0
     sol = solve("kernel", A, b, D, d, load_factors=lf, support=sup)
-    launches, wls = fk.launches, fk.wls_launches
+    launches, wls = counters[KERNEL], counters[WLS]
     first = solve("kernel", A, b, D, d)
     first_plain = solve("plain", A, b, D, d)
     A2, b2, D2, d2, pinned, x_pin = fd.eliminate_pinned(
@@ -747,12 +750,13 @@ def check_articulated(batch: int, ticks: int, device,
                       dump: dict | None = None) -> dict:
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     args = setup_rollout(batch, device)
     with WorstQp(fk) as tap:
-        fk.launches = 0
+        counters[KERNEL] = 0
         tel, wall = run_rollout(args, ticks, device, plant="articulated")
-        launches = fk.launches
+        launches = counters[KERNEL]
     for k, v in tel.items():
         if v.is_floating_point() and not torch.isfinite(v).all():
             raise AssertionError(f"articulated telemetry {k} is not finite")
@@ -842,12 +846,13 @@ def check_sweep(batch: int, ticks: int, device, dump: dict | None) -> dict:
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
     from quadruped_locomotion_tpu_torch.terrain import heightfield as hfm
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     torch.cuda.reset_peak_memory_stats()
     with WorstQp(fk) as tap, FootholdTap(hfm) as feet:
-        fk.launches = 0
+        counters[KERNEL] = 0
         res = sweep.measure(batch, ticks, device=device)
-        launches = fk.launches
+        launches = counters[KERNEL]
     want = (ticks + 1) * cl.CONTROL_SUBSTEPS  # the warm-up tick included
     res.update(launches=launches,
                moved_share=feet.moved.float().mean().item(),
@@ -893,10 +898,10 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
     from quadruped_locomotion_tpu_torch.control import state_estimator as se
     from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
     from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
     from quadruped_locomotion_tpu_torch.rollout import estimated_loop as el
     from quadruped_locomotion_tpu_torch.types import RobotModel
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     model = RobotModel.simpledog(device)
     gp = GaitParams.trot_defaults(device)
@@ -905,7 +910,7 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
         linear_velocity=torch.tensor([0.2, 0.0, 0.0],
                                      device=device).expand(batch, 3),
         yaw_rate=torch.zeros(batch, device=device))
-    fk.launches = 0
+    counters[KERNEL] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, tel = el.rollout_estimated(
@@ -927,7 +932,7 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
                pos_err_final_max=pos_err[-1].max().item(),
                pos_err_final_median=pos_err[-1].median().item(),
                kkt_p99=float(np.percentile(tel["qp_kkt"].cpu().numpy(), 99)),
-               kernel_launches=fk.launches)
+               kernel_launches=counters[KERNEL])
     log(f"estimated loop B={batch} ticks={ticks}: " + json.dumps(res))
     if not res["finite"]:
         raise AssertionError("estimated-loop telemetry is not finite")
@@ -937,7 +942,7 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
         raise AssertionError(f"estimated velocity error: {res}")
     if not res["pos_err_final_max"] < 0.25:
         raise AssertionError(f"estimated position error: {res}")
-    if fk.launches:
+    if counters[KERNEL]:
         raise AssertionError("the estimated loop reached the kernel")
     return res
 
@@ -979,11 +984,11 @@ def check_preview(device) -> dict:
     against the default stance, previewed up to the committed JAX
     preview's end (its done tick + 10)."""
     from quadruped_locomotion_tpu_torch.api.action_loader import default_registry
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout import preview as pv
     from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
     from quadruped_locomotion_tpu_torch.planning import steps
     from quadruped_locomotion_tpu_torch.types import RobotModel
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     golden = dict(np.load(PREVIEW_GOLDEN))
     height = float(golden["meta/height"])
@@ -996,7 +1001,7 @@ def check_preview(device) -> dict:
     compile_ = lambda n: reg.compile(  # noqa: E731
         n, sim.robot.base.position, sim.robot.base.quaternion, sim.feet_world,
         device=device)
-    fk.launches = 0
+    counters[KERNEL] = 0
     per, worst = {}, dict(base=0.0, feet=0.0, quat=0.0, joints=0.0)
     for name in names:
         sched = compile_(name)
@@ -1039,7 +1044,7 @@ def check_preview(device) -> dict:
         if max(err["base"], err["feet"], err["quat"]) > PREVIEW_TOL:
             raise AssertionError(f"{name}: preview off the JAX preview by "
                                  f"more than {PREVIEW_TOL}: {err}")
-    kernel_launches = fk.launches
+    kernel_launches = counters[KERNEL]
     # device ops of one tick without a step entry (trot_test mid-swing)
     # and of a base_auto entry (standup's first tick: the pose QP)
     def ticks_of(name, n):
@@ -1078,10 +1083,10 @@ def check_scripted(standup_ticks: int, device) -> dict:
     from quadruped_locomotion_tpu_torch import convert
     from quadruped_locomotion_tpu_torch.api.action_loader import default_registry
     from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.planning import steps
     from quadruped_locomotion_tpu_torch.rollout import script_loop as sl
     from quadruped_locomotion_tpu_torch.types import RobotModel
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     golden = dict(np.load(SCRIPT_GOLDEN))
     if not 40 <= standup_ticks <= len(golden["standup/tel/done"]):
@@ -1089,7 +1094,7 @@ def check_scripted(standup_ticks: int, device) -> dict:
                          f"{len(golden['standup/tel/done'])}]")
     model, params = RobotModel.simpledog(device), ControllerParams.defaults(device)
     runs, res = {}, {}
-    fk.launches = 0
+    counters[KERNEL] = 0
     for name, ticks in (("standup", standup_ticks),
                         ("trot_test", WINDOW_TICKS),
                         ("change_to_spot", WINDOW_TICKS)):
@@ -1148,7 +1153,7 @@ def check_scripted(standup_ticks: int, device) -> dict:
                 raise AssertionError(f"standup did not stand up: {r}")
         elif not r["z_min"] > {"trot_test": 0.3, "change_to_spot": 0.15}[name]:
             raise AssertionError(f"{name}: the base sank: {r}")
-    kernel_launches = fk.launches
+    kernel_launches = counters[KERNEL]
     # device ops of one tick of the trot window (no step entry)
     ssf, sched = runs["trot_test"]
     _, ops, busy, wall = device_ops(lambda: sl.planner_tick(
@@ -1187,9 +1192,9 @@ def check_manager(device) -> dict:
     on the card from the 0.4 m stance for MANAGER_TICKS ticks, then a
     switch to the freeze controller, then the single-leg controller on LF,
     then an e-stop."""
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.runtime import hal, manager as mgr
     from quadruped_locomotion_tpu_torch.types import RobotModel
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     model = RobotModel.simpledog(device)
     hw = hal.SimHardware(model, height=0.4, device=device)
@@ -1199,7 +1204,7 @@ def check_manager(device) -> dict:
     leg = mgr.SingleLegController(model, legs=(0,), device=device)
     for c in (bal, frz, leg):
         m.register(c)
-    fk.launches = 0
+    counters[KERNEL] = 0
     t0 = time.perf_counter()
     m.switch(bal.name)  # builds and captures both balance variants
     bal.warmup(hw.read())
@@ -1287,7 +1292,7 @@ def check_manager(device) -> dict:
     res.update(switched=switched, estop_flag=final.estop,
                estop_max_abs_tau=float(np.abs(np.stack(after)).max()),
                estop_sample_tau=float(np.abs(final.tau).max()),
-               kernel_launches=fk.launches)
+               kernel_launches=counters[KERNEL])
     log("manager on the card: " + json.dumps(res))
     if not (abs(res["height"] - 0.4) < 0.02 and res["speed"] < 0.2):
         raise AssertionError(f"standing balance drifted: {res}")
@@ -1300,7 +1305,7 @@ def check_manager(device) -> dict:
     if not (res["estop_flag"] and res["estop_max_abs_tau"] == 0.0
             and res["estop_sample_tau"] == 0.0):
         raise AssertionError(f"e-stop did not zero the torques: {res}")
-    if fk.launches:
+    if counters[KERNEL]:
         raise AssertionError("the manager reached the QP kernel")
     return res
 
@@ -1389,7 +1394,6 @@ def check_operator_api(device) -> dict:
     from quadruped_locomotion_tpu_torch import convert
     from quadruped_locomotion_tpu_torch.api import cli
     from quadruped_locomotion_tpu_torch.api import messages as msgs
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout.closed_loop import (
         CONTROL_SUBSTEPS,
     )
@@ -1397,12 +1401,13 @@ def check_operator_api(device) -> dict:
         FreeGaitActionServer,
     )
     from quadruped_locomotion_tpu_torch.types import RobotModel
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     golden = dict(np.load(SERVER_GOLDEN))
     model = RobotModel.simpledog(device)
     goals = slice7_goals(msgs)
     res = {}
-    fk.launches = 0
+    counters[KERNEL] = 0
     for name, ticks in OPERATOR_WINDOWS.items():
         snap = convert.unflatten(golden, f"{name}/snap/")
         srv = FreeGaitActionServer.from_snapshot(model, snap, device=device)
@@ -1450,13 +1455,13 @@ def check_operator_api(device) -> dict:
             paused = got["status"] == msgs.PROGRESS_PAUSED
             if not (paused.sum() == 3 and np.all(t[paused] == t[0])):
                 raise AssertionError(f"paused ticks moved the clock: {t}")
-    res["server_kernel_launches"] = fk.launches
-    if fk.launches:
+    res["server_kernel_launches"] = counters[KERNEL]
+    if counters[KERNEL]:
         raise AssertionError("the action server reached the QP kernel")
 
     console = dict(np.load(CONSOLE_GOLDEN))
     want = json.loads(str(console["trot/json"]))
-    fk.launches = 0
+    counters[KERNEL] = 0
     with tempfile.TemporaryDirectory() as tmp:
         png = Path(tmp) / "trot.png"
         buf = io.StringIO()
@@ -1471,7 +1476,7 @@ def check_operator_api(device) -> dict:
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     ticks = int(TROT_SECONDS / 0.01)
     trot = dict(rc=rc, wall_s=wall, ms_per_tick=wall / ticks * 1e3,
-                launches=fk.launches, line=line, jax_line=want,
+                launches=counters[KERNEL], line=line, jax_line=want,
                 d_distance=abs(line["distance"] - want["distance"]),
                 d_final_height=abs(line["final_height"] - want["final_height"]),
                 plot_bytes=png_bytes)
@@ -1483,12 +1488,12 @@ def check_operator_api(device) -> dict:
             and trot["d_final_height"] <= CONSOLE_TOL):
         raise AssertionError(f"console trot off the JAX console: {trot}")
     per_tick = CONTROL_SUBSTEPS if device.type == "cuda" else 0
-    if fk.launches != per_tick * ticks:
-        raise AssertionError(f"console trot: {fk.launches} kernel launches, "
-                             f"want {per_tick * ticks}")
+    if counters[KERNEL] != per_tick * ticks:
+        raise AssertionError(f"console trot: {counters[KERNEL]} kernel "
+                             f"launches, want {per_tick * ticks}")
     if not png_bytes:
         raise AssertionError("console trot: --plot wrote no PNG")
-    res["launches"] = fk.launches
+    res["launches"] = counters[KERNEL]
     return res
 
 
@@ -1591,15 +1596,16 @@ def check_world1_sweep(mesh, device, inp: dict) -> dict:
     from quadruped_locomotion_tpu_torch.model.kinematics import mv
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.parallel import distributed as pdist
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     per_call = 1 if device.type == "cuda" else 0  # kernel launches
     A, b, S, W, D, d = prob = inp["problem"]
     x_ref, _, _, kkt_ref = fk.solve_weighted_ls_fd_qp(A, S, b, W, D, d)
     sweep = pdist.make_sharded_qp_sweep(mesh)
     shard = pdist.shard_problem(mesh, prob)
-    n0 = fk.launches
+    n0 = counters[KERNEL]
     sol, gkkt, gerr = sweep(*shard)
-    sweep_launches = fk.launches - n0
+    sweep_launches = counters[KERNEL] - n0
     local_err = (mv(A, x_ref) - b).abs().amax(-1).mean()
     res = {"sweep": dict(
         launches=sweep_launches, x_equal=torch.equal(sol.x, x_ref),
@@ -1628,11 +1634,11 @@ def check_world1_rollouts(mesh, device, inp: dict) -> dict:
     from quadruped_locomotion_tpu_torch.control.balance_controller import balance_update
     from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
     from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.parallel import mesh as pmesh
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
     from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
     from quadruped_locomotion_tpu_torch.types import CfdParams, RobotModel, VmcGains
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     per_call = 1 if device.type == "cuda" else 0
     ticks = PAR_TICKS
@@ -1641,11 +1647,11 @@ def check_world1_rollouts(mesh, device, inp: dict) -> dict:
     gp = GaitParams.trot_defaults(device)
     cl.rollout(model, params, gp, inp["ls0"], inp["cmd"], 1, device=device)
     loco = pmesh.make_sharded_locomotion_rollout(mesh, ticks)
-    n0 = fk.launches
+    n0 = counters[KERNEL]
     (fin, kkt, up), wall = _timed(
         device, loco, pmesh.shard_batch(mesh, inp["ls0"]),
         pmesh.shard_batch(mesh, inp["cmd"]))
-    loco_launches = fk.launches - n0
+    loco_launches = counters[KERNEL] - n0
     (ref, tel), wall_ref = _timed(device, lambda: cl.rollout(
         model, params, gp, inp["ls0"], inp["cmd"], ticks, device=device))
     res = {"loco": dict(
@@ -1709,21 +1715,21 @@ def headline_ms(fn, reps: int = PAR_REPS) -> float:
 def parallel_rank(rank: int, batch: int, ticks: int, device: str) -> dict:
     """Phase 16b, one of two ranks on ``device`` (gloo). Its closed loop is
     timed cold: the first tick is in its ms per tick."""
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.parallel import distributed as pdist
     from quadruped_locomotion_tpu_torch.parallel import mesh as pmesh
     from quadruped_locomotion_tpu_torch.types import full_f32_matmuls
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     full_f32_matmuls()
     device = torch.device(device)
     inp = parallel_inputs(device, batch)
     prob = inp["problem"]
-    fk.launches = fk.wls_launches = 0
+    counters[KERNEL] = counters[WLS] = 0
     mesh = pmesh.make_mesh(device=device)
     pod = pdist.make_pod_mesh(device=device)
     sol, gkkt, gerr = pdist.make_sharded_qp_sweep(mesh)(
         *pdist.shard_problem(mesh, prob))
-    out = {"sweep_launches": fk.launches, "mesh": mesh.shape,
+    out = {"sweep_launches": counters[KERNEL], "mesh": mesh.shape,
            "pod": pod.shape, "backend": mesh.backend}
     x = pmesh.gather_batch(mesh, sol.x)
     sol_p, _, _ = pdist.make_sharded_qp_sweep(pod)(
@@ -1731,15 +1737,16 @@ def parallel_rank(rank: int, batch: int, ticks: int, device: str) -> dict:
     xp = pmesh.gather_batch(pod, sol_p.x)
     ls0, cmd = (pmesh.shard_batch(mesh, inp[k]) for k in ("ls0", "cmd"))
     loco = pmesh.make_sharded_locomotion_rollout(mesh, ticks)
-    n0 = fk.launches
+    n0 = counters[KERNEL]
     (fin, kkt, up), wall = _timed(device, loco, ls0, cmd)
-    out.update(loco_launches=fk.launches - n0, kkt=float(kkt), upright=float(up))
+    out.update(loco_launches=counters[KERNEL] - n0, kkt=float(kkt),
+               upright=float(up))
     fin = pmesh.gather_batch(mesh, fin)
     ms = pmesh.gather_batch(mesh, torch.tensor([wall / ticks * 1e3],
                                                device=device))
     half = tuple(t[:batch // PAR_RANKS] for t in prob)
     out["overhead"] = pdist.measure_sharding_overhead(half, mesh=mesh)
-    out.update(launches=fk.launches, wls_launches=fk.wls_launches,
+    out.update(launches=counters[KERNEL], wls_launches=counters[WLS],
                ms_per_tick_ranks=ms.cpu().tolist())
     if rank == 0:  # numpy: the results travel to the parent pickled
         out.update(x=x.cpu().numpy(), x_pod=xp.cpu().numpy(),
@@ -1827,10 +1834,10 @@ def check_parallel(device, card: str) -> dict:
     (b) and (c) spend most of their time starting their processes."""
     import torch.distributed as dist
 
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     inp = parallel_inputs(device, BATCH)
-    fk.launches = fk.wls_launches = 0
+    counters[KERNEL] = counters[WLS] = 0
     with ThreadPoolExecutor(2) as pool:
         mesh = world1_mesh(device)
         try:
@@ -1840,7 +1847,7 @@ def check_parallel(device, card: str) -> dict:
             w1.update(check_world1_rollouts(mesh, device, inp))
         finally:
             dist.destroy_process_group()
-        w1_launches, w1_wls = fk.launches, fk.wls_launches
+        w1_launches, w1_wls = counters[KERNEL], counters[WLS]
         two = check_parallel_ranks(device, *ranks.result(), w1)
         line = check_scaling_entry(card, *entry.result())
     return dict(launches=w1_launches + two["launches"],

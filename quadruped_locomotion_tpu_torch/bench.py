@@ -77,11 +77,11 @@ def latency_measure(chunks: int, device=None, dispatches: int = 50,
     rollouts with plant "none" (one planner tick per dispatch). Raises
     unless the kernel ran exactly 4 times per planner tick on the card (0
     on the CPU), or if the telemetry is not finite."""
-    from .ops import fd_qp_kernel as fk
     from .rollout import closed_loop as cl
     from .control.locomotion import ControllerParams
     from .gait.phase import GaitParams
     from .types import RobotModel, full_f32_matmuls, resolve_device
+    from .utils.logging import counters
 
     dev = resolve_device(device)
     full_f32_matmuls()
@@ -99,7 +99,7 @@ def latency_measure(chunks: int, device=None, dispatches: int = 50,
                           device=dev)
 
     for plant in ("none", "articulated"):
-        fk.launches = 0
+        counters["qp.kernel_launches"] = 0
         ls, _ = roll(ls0, warmup, plant)
         per_ctrl = []
         for _ in range(chunks):
@@ -110,16 +110,17 @@ def latency_measure(chunks: int, device=None, dispatches: int = 50,
             per_ctrl.append((time.perf_counter() - t0) * 1e3
                             / (chunk * cl.CONTROL_SUBSTEPS))
         want = (warmup + chunks * chunk) * per_tick
-        if fk.launches != want:
-            raise AssertionError(f"latency {plant}: {fk.launches} launches, "
+        launches = counters["qp.kernel_launches"]
+        if launches != want:
+            raise AssertionError(f"latency {plant}: {launches} launches, "
                                  f"want {want}")
         if not torch.isfinite(tel["base_position"]).all():
             raise AssertionError(f"latency {plant}: telemetry not finite")
-        out["launches"] += fk.launches
+        out["launches"] += launches
         out[plant] = dict(p50_ms=float(np.percentile(per_ctrl, 50)),
                           p99_ms=float(np.percentile(per_ctrl, 99)),
                           chunks_ms=per_ctrl)
-    fk.launches = 0
+    counters["qp.kernel_launches"] = 0
     disp = []
     for _ in range(dispatches):
         _sync(dev)
@@ -127,9 +128,10 @@ def latency_measure(chunks: int, device=None, dispatches: int = 50,
         ls, _ = roll(ls, 1, "none")
         _sync(dev)
         disp.append((time.perf_counter() - t0) * 1e3 / cl.CONTROL_SUBSTEPS)
-    if fk.launches != dispatches * per_tick:
-        raise AssertionError(f"latency dispatches: {fk.launches} launches")
-    out["launches"] += fk.launches
+    launches = counters["qp.kernel_launches"]
+    if launches != dispatches * per_tick:
+        raise AssertionError(f"latency dispatches: {launches} launches")
+    out["launches"] += launches
     out["per_dispatch_p50_ms"] = float(np.percentile(disp, 50))
     return out
 

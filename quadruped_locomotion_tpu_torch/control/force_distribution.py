@@ -21,6 +21,7 @@ from ..model.kinematics import forward_kinematics, jacobians, mv
 from ..ops import fd_qp_kernel, qp
 from ..ops.qp import QpSolution
 from ..types import GRAVITY, CfdParams, RobotModel, RobotState, const
+from ..utils import logging as qlog
 from ..utils.rotations import cross, quat_inv_rotate, skew
 
 
@@ -127,30 +128,36 @@ def solve_fd_qp_batched(
     moves to the right-hand side, their columns and rows are masked out,
     and the batch is solved again on the same backend (two kernel
     launches on CUDA).
+
+    The whole call is the span ``qp.entry``.
     """
-    if backend in ("auto", "kernel", "plain"):
-        if backend == "kernel":
-            _require_cuda(backend, A)
-        solve = (fd_qp_kernel.solve_weighted_ls_fd_qp_plain if backend == "plain"
-                 else fd_qp_kernel.solve_weighted_ls_fd_qp)
+    with qlog.span("qp.entry"):
+        if backend in ("auto", "kernel", "plain"):
+            if backend == "kernel":
+                _require_cuda(backend, A)
+            solve = (fd_qp_kernel.solve_weighted_ls_fd_qp_plain
+                     if backend == "plain"
+                     else fd_qp_kernel.solve_weighted_ls_fd_qp)
 
-        def dispatch(A, b, D, d):
-            return _kernel_solution(*solve(A, S, b, W, D, d, iters=iters), iters)
-    elif backend == "generic":
-        def dispatch(A, b, D, d):
-            return qp.solve_weighted_ls_qp(A, S, b, W, D, d, iters=iters)
-    else:
-        raise ValueError(f"unknown QP backend {backend!r}")
+            def dispatch(A, b, D, d):
+                return _kernel_solution(
+                    *solve(A, S, b, W, D, d, iters=iters), iters)
+        elif backend == "generic":
+            def dispatch(A, b, D, d):
+                return qp.solve_weighted_ls_qp(A, S, b, W, D, d, iters=iters)
+        else:
+            raise ValueError(f"unknown QP backend {backend!r}")
 
-    sol = dispatch(A, b, D, d)
-    if load_factors is None:
-        return sol
-    if support is None:
-        raise ValueError("load_factors requires the support mask")
-    A2, b2, D2, d2, pinned, x_pin = eliminate_pinned(
-        A, b, D, d, sol.x, load_factors, support)
-    sol2 = dispatch(A2, b2, D2, d2)
-    return sol2._replace(x=combine_pinned(sol2.x, x_pin, pinned, support))
+        sol = dispatch(A, b, D, d)
+        if load_factors is None:
+            return sol
+        if support is None:
+            raise ValueError("load_factors requires the support mask")
+        A2, b2, D2, d2, pinned, x_pin = eliminate_pinned(
+            A, b, D, d, sol.x, load_factors, support)
+        sol2 = dispatch(A2, b2, D2, d2)
+        return sol2._replace(
+            x=combine_pinned(sol2.x, x_pin, pinned, support))
 
 
 def eliminate_pinned(A, b, D, d, x_first, load_factors, support):

@@ -37,6 +37,7 @@ from .types import (
     BaseTarget, CfdParams, RobotModel, VmcGains, full_f32_matmuls,
     resolve_device,
 )
+from .utils import logging as qlog
 
 CHAIN = 10  # dependent solves per graph replay
 CROSS_CHECK = 512  # instances held against the generic QP
@@ -201,9 +202,9 @@ def generic_gap(A, b, S, W, D, d, x, iters: int = 15,
 class ChainGraph:
     """``CHAIN`` dependent ``solve_weighted_ls_fd_qp`` calls captured in
     one CUDA graph. Each replay runs ``CHAIN`` kernel launches, which
-    :meth:`replay` adds to the wrapper's counters (at capture the
-    wrapper counted calls that did not run the kernel; those are taken
-    back)."""
+    :meth:`replay` adds to the counters ``qp.kernel_launches`` and
+    ``qp.wls_launches`` (at capture the wrapper counted calls that did
+    not run the kernel; those are taken back)."""
 
     def __init__(self, A, b, S, W, D, d, iters: int = 15):
         self.args = (A, b, S, W, D, d)
@@ -215,15 +216,17 @@ class ChainGraph:
             self._chain()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        before = (fk.launches, fk.wls_launches)
+        count = qlog.counters
+        before = (count["qp.kernel_launches"], count["qp.wls_launches"])
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.x, self.kkt = self._chain()
-        self.per_replay = fk.launches - before[0]
-        if self.per_replay != CHAIN or fk.wls_launches - before[1] != CHAIN:
+        self.per_replay = count["qp.kernel_launches"] - before[0]
+        if (self.per_replay != CHAIN
+                or count["qp.wls_launches"] - before[1] != CHAIN):
             raise RuntimeError(f"captured {self.per_replay} launches, "
                                f"want {CHAIN}")
-        fk.launches, fk.wls_launches = before
+        count["qp.kernel_launches"], count["qp.wls_launches"] = before
 
     def _chain(self):
         A, b, S, W, D, d = self.args
@@ -236,8 +239,8 @@ class ChainGraph:
 
     def replay(self):
         self.graph.replay()
-        fk.launches += self.per_replay
-        fk.wls_launches += self.per_replay
+        qlog.counters["qp.kernel_launches"] += self.per_replay
+        qlog.counters["qp.wls_launches"] += self.per_replay
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:

@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import logging as qlog
+
 N = 12  # primal variables (3 force components × 4 legs)
 MI = 20  # inequality rows (min normal force + 4-edge pyramid × 4 legs)
 
@@ -43,15 +45,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-# Number of kernel launches made by solve_fd_qp (the plain CPU path does
-# not count). Callers reset it to 0 and read it to show that a run went
-# through the kernel.
-launches = 0
-# Calls of solve_weighted_ls_fd_qp that launched the kernel (each one is
-# also one of ``launches``).
-wls_launches = 0
-
 
 @dataclass
 class KernelBuild:
@@ -161,14 +154,16 @@ def solve_fd_qp(G, g, D, d, iters: int = 15):
     one device. Returns (x (B,12), s (B,20), z (B,20), kkt (B,)).
 
     CUDA tensors go to the kernel (one launch; raises if it cannot be
-    built or launched); CPU tensors to :func:`solve_fd_qp_plain`.
+    built or launched); CPU tensors to :func:`solve_fd_qp_plain`. The
+    whole call is the span ``qp.solve``.
     """
-    _check(G, g, D, d)
-    if G.device.type == "cpu":
-        return solve_fd_qp_plain(G, g, D, d, iters)
-    if G.device.type != "cuda":
-        raise ValueError(f"unsupported device {G.device}")
-    return launch_fd_qp(G, g, D, d, iters)
+    with qlog.span("qp.solve"):
+        _check(G, g, D, d)
+        if G.device.type == "cpu":
+            return solve_fd_qp_plain(G, g, D, d, iters)
+        if G.device.type != "cuda":
+            raise ValueError(f"unsupported device {G.device}")
+        return launch_fd_qp(G, g, D, d, iters)
 
 
 def launch_fd_qp(G, g, D, d, iters: int = 15):
@@ -176,8 +171,8 @@ def launch_fd_qp(G, g, D, d, iters: int = 15):
     contiguous float32 tensors on one CUDA device, read in place (one
     instance's entries are contiguous, so a warp's loads coalesce).
     Returns contiguous x (B,12), s (B,20), z (B,20), kkt (B,). Raises on
-    anything else, and if the kernel cannot be built or launched."""
-    global launches
+    anything else, and if the kernel cannot be built or launched. Counts
+    the launch in ``counters["qp.kernel_launches"]``."""
     B = G.shape[0]
     for name, t, shape in (("G", G, (B, N, N)), ("g", g, (B, N)),
                            ("D", D, (B, MI, N)), ("d", d, (B, MI))):
@@ -205,7 +200,7 @@ def launch_fd_qp(G, g, D, d, iters: int = 15):
             "fd_qp_ipm launch failed: "
             + _lib.fd_qp_ipm_error_string(rc).decode()
         )
-    launches += 1
+    qlog.counters["qp.kernel_launches"] += 1
     return x, s, z, kkt
 
 
@@ -227,14 +222,15 @@ def solve_weighted_ls_fd_qp(A, S, b, W, D, d, iters: int = 15):
     with A (B,6,12), S (B,6), b (B,6), W (B,12), D (B,20,12), d (B,20).
     Forms G = 2AᵀSA + diag(W) and g = −2AᵀSb as plain batched float32
     products (the reference forms them outside its kernel too), then
-    calls :func:`solve_fd_qp`: one kernel launch on CUDA tensors, the
-    plain version on CPU tensors. Returns (x, s, z, kkt)."""
-    global wls_launches
-    G, g = form_quadratic(A, S, W, b)
+    calls :func:`solve_fd_qp`: one kernel launch on CUDA tensors (counted
+    in ``counters["qp.wls_launches"]``), the plain version on CPU tensors.
+    The formation is the span ``qp.form``. Returns (x, s, z, kkt)."""
+    with qlog.span("qp.form"):
+        G, g = form_quadratic(A, S, W, b)
     out = solve_fd_qp(G.contiguous(), g.contiguous(), D.contiguous(),
                       d.contiguous(), iters)
     if G.device.type == "cuda":
-        wls_launches += 1
+        qlog.counters["qp.wls_launches"] += 1
     return out
 
 

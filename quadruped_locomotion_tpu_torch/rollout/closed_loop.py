@@ -35,6 +35,7 @@ from ..model.kinematics import foot_velocities, forward_kinematics
 from ..types import (
     RobotModel, TensorStruct, full_f32_matmuls, resolve_device, where_tree,
 )
+from ..utils import logging as qlog
 from ..utils.rotations import cross, quat_rotate
 from . import articulated as artlib
 from . import simulator as simlib
@@ -175,53 +176,73 @@ def planner_tick(
     ``telemetry_fn(state, tau, diag, ctx) -> tree``, if given, collects
     per-substep extras (the controller's state, the applied torques, the
     balance diagnostics and the formed QP of each substep); the second
-    result is then (kkt, extras stacked over the substeps)."""
+    result is then (kkt, extras stacked over the substeps).
+
+    Spans: the tick is ``loop.tick``, the gait engine
+    ``loop.gait_advance``; each substep's ``loop.contact_fsm`` (contact
+    sensor, FSM, reflexes), ``loop.prepare``, ``loop.qp``,
+    ``loop.finish`` (with the freeze reflex) and ``loop.plant`` carry
+    ``substep`` 0-3."""
     plant_step = _plant(plant)
     plant_kwargs = ({"friction_mu": friction_mu}
                     if friction_mu is not None and plant == "articulated"
                     else {})
-    gait2, support, (pos_w, vel_w, acc_w), target, normals = gg.advance(
-        model, ls.gait, ls.sim.robot, ls.sim.feet_world, gait_params,
-        command.linear_velocity, command.yaw_rate, PLANNER_DT, terrain=terrain,
-    )
-    # normalized phases for the FSM thresholds
-    sw_norm = gait2.phase.swing_phase / torch.clamp(
-        gait_params.t_swing[..., None], min=1e-6)
-    st_norm = gait2.phase.stance_phase / torch.clamp(
-        gait_params.t_stance[..., None], min=1e-6)
+    with qlog.span("loop.tick"):
+        with qlog.span("loop.gait_advance"):
+            gait2, support, (pos_w, vel_w, acc_w), target, normals = (
+                gg.advance(model, ls.gait, ls.sim.robot, ls.sim.feet_world,
+                           gait_params, command.linear_velocity,
+                           command.yaw_rate, PLANNER_DT, terrain=terrain))
+        # normalized phases for the FSM thresholds
+        sw_norm = gait2.phase.swing_phase / torch.clamp(
+            gait_params.t_swing[..., None], min=1e-6)
+        st_norm = gait2.phase.stance_phase / torch.clamp(
+            gait_params.t_stance[..., None], min=1e-6)
 
-    sim, fsm_state = ls.sim, ls.fsm
-    kkt = None
-    extras = []
-    for _ in range(CONTROL_SUBSTEPS):
-        # ground height under each foot
-        gz = (torch.zeros_like(sim.feet_world[..., 2]) if terrain is None
-              else terrain.height_at(sim.feet_world[..., :2]))
-        # reconcile the gait's support with measured contact, then reflexes
-        contact = simlib.contact_sensor(sim, ground_height=gz)
-        fsm_state, fsm = fsm_step(
-            fsm_state, support, contact, sw_norm, st_norm, sim.robot.q,
-            foot_speed_tangential=measured_foot_speed_tangential(
-                model, sim.robot),
-        )
-        pos_r, vel_r, acc_r = apply_swing_reflexes(
-            pos_w, vel_w, acc_w, sim.feet_world, fsm, ground_height=gz)
-        state = sim.robot.replace(support=fsm.support, surface_normal=normals)
-        ctx = locomotion_prepare(model, params, state, target,
-                                 pos_r, vel_r, acc_r)
-        sol = solve_formed_qp_batched(ctx.G, ctx.g, ctx.D, ctx.d,
-                                      iters=qp_iters, backend=qp_backend)
-        tau, diag = locomotion_finish(model, params, state, ctx, sol)
-        # lost-contact freeze reflex: hold the posture stored at loss
-        tau_freeze = joint_pd_gravity_torques(
-            model, state, fsm.q_freeze, torch.zeros_like(fsm.q_freeze))
-        tau = torch.where(fsm.freeze[..., None], tau_freeze, tau)
-        if telemetry_fn is not None:
-            extras.append(telemetry_fn(state, tau, diag, ctx))
-        sim = plant_step(model, sim, tau, CONTROL_DT, support=fsm.support,
-                         ground_height=gz, **plant_kwargs)
-        k = sol.kkt_error
-        kkt = k if kkt is None else torch.maximum(kkt, k)
+        sim, fsm_state = ls.sim, ls.fsm
+        kkt = None
+        extras = []
+        for i in range(CONTROL_SUBSTEPS):
+            with qlog.span("loop.contact_fsm", substep=i):
+                # ground height under each foot
+                gz = (torch.zeros_like(sim.feet_world[..., 2])
+                      if terrain is None
+                      else terrain.height_at(sim.feet_world[..., :2]))
+                # reconcile the gait's support with measured contact, then
+                # reflexes
+                contact = simlib.contact_sensor(sim, ground_height=gz)
+                fsm_state, fsm = fsm_step(
+                    fsm_state, support, contact, sw_norm, st_norm,
+                    sim.robot.q,
+                    foot_speed_tangential=measured_foot_speed_tangential(
+                        model, sim.robot),
+                )
+                pos_r, vel_r, acc_r = apply_swing_reflexes(
+                    pos_w, vel_w, acc_w, sim.feet_world, fsm, ground_height=gz)
+                state = sim.robot.replace(support=fsm.support,
+                                          surface_normal=normals)
+            with qlog.span("loop.prepare", substep=i):
+                ctx = locomotion_prepare(model, params, state, target,
+                                         pos_r, vel_r, acc_r)
+            with qlog.span("loop.qp", substep=i):
+                sol = solve_formed_qp_batched(ctx.G, ctx.g, ctx.D, ctx.d,
+                                              iters=qp_iters,
+                                              backend=qp_backend)
+            with qlog.span("loop.finish", substep=i):
+                tau, diag = locomotion_finish(model, params, state, ctx, sol)
+                # lost-contact freeze reflex: hold the posture stored at loss
+                tau_freeze = joint_pd_gravity_torques(
+                    model, state, fsm.q_freeze,
+                    torch.zeros_like(fsm.q_freeze))
+                tau = torch.where(fsm.freeze[..., None], tau_freeze, tau)
+            if telemetry_fn is not None:
+                extras.append(telemetry_fn(state, tau, diag, ctx))
+            with qlog.span("loop.plant", substep=i):
+                sim = plant_step(model, sim, tau, CONTROL_DT,
+                                 support=fsm.support, ground_height=gz,
+                                 **plant_kwargs)
+            k = sol.kkt_error
+            kkt = k if kkt is None else torch.maximum(kkt, k)
     out = LocomotionState(sim=sim, gait=gait2, fsm=fsm_state)
     if telemetry_fn is None:
         return out, kkt

@@ -18,12 +18,24 @@
   timed and profiled as the rollouts are.
 * ``estimated``: the EKF-estimated closed loop at ``chip_smoke.EST_BATCH``
   scenarios with realistic sensors, timed and profiled per tick.
+* ``qp_balance``: the benchmark's ``qp.balance`` caller
+  (``benchmark/drivers/fd_qp.py``: 16384 QPs a call from a pool of 8,
+  the largest KKT residual read on the host after each call) for its
+  traced window of 300 calls.
 
-Each profile window (``torch.profiler``, CPU and CUDA activities) prints
-the device busy share (summed device time over the window's wall time),
-the CUDA kernels launched per control substep or per call, and the top
-CUDA kernels by device time. The QP kernel's own time per launch is
-``chip_smoke.py``'s (phase 3).
+Each profile window (``torch.profiler``, CUDA activity alone, as the
+benchmark traces: recording the host's operators would slow the host
+the spans time) prints the device busy share (summed device time over
+the window's wall time), the CUDA kernels launched per control substep
+or per call, and the top CUDA kernels by device time. The program's
+spans (``utils/logging.py``) are recorded over the window, and for each
+span, by name and substep, a line gives how often it ran and, per run,
+its host time and self time, the device time and operations launched
+inside it (each device operation joined to its launching CUDA runtime
+call by correlation id) and the device idle time while the host was in
+it, on the host's clock (``utils/logging.idle_intervals``).
+``(outside program spans)`` is the caller's share. The QP kernel's
+own time per launch is ``chip_smoke.py``'s (phase 3).
 
     python3 scripts/profile_torch_rollout.py [--path articulated]
 
@@ -48,21 +60,71 @@ TICKS = 10  # timed warm planner ticks
 PROFILE_TICKS = 2  # ticks under torch.profiler
 PROFILE_CALLS = 5  # QP calls (or graph replays) under torch.profiler
 PATHS = ("articulated", "massless", "none", "headline", "load_factors",
-         "sweep", "estimated")
+         "sweep", "estimated", "qp_balance")
+
+
+def span_rows(prof, spans: list) -> list[dict]:
+    """One row per span name and substep: how often it ran and, per run,
+    its host time and self time, and the device time, operations and
+    idle time put down to it (``utils/logging.attribute``); then the
+    caller's ``(outside program spans)`` and any operation whose launch
+    the profiler did not keep, as totals over the window; then how far
+    the device's timestamps ran ahead of the host's clock."""
+    from quadruped_locomotion_tpu_torch.utils import logging as qlog
+
+    def key(s):
+        return (s.name, s.attrs.get("substep"))
+
+    ops = qlog.profiler_device_ops(prof)
+    rows = qlog.attribute(ops, spans, key)
+    own = qlog.self_ns(spans)
+    runs, host, self_ = {}, {}, {}
+    for s in spans:
+        k = key(s)
+        runs[k] = runs.get(k, 0) + 1
+        host[k] = host.get(k, 0) + s.end_ns - s.start_ns
+        self_[k] = self_.get(k, 0) + own[s.id]
+    out = []
+    for k in sorted(runs, key=lambda k: (k[0], -1 if k[1] is None else k[1])):
+        n, got = runs[k], rows.get(k, {"ops": 0, "device_s": 0.0,
+                                       "idle_s": 0.0})
+        out.append({"span": k[0], "substep": k[1], "runs": n,
+                    "host_us": host[k] / n / 1e3,
+                    "host_self_us": self_[k] / n / 1e3,
+                    "device_us": got["device_s"] / n * 1e6,
+                    "device_ops": got["ops"] / n,
+                    "idle_us": got["idle_s"] / n * 1e6})
+    for k in (qlog.OUTSIDE, qlog.UNLINKED):
+        if k in rows:
+            out.append({"span": k, "window_device_us": rows[k]["device_s"]
+                        * 1e6, "window_device_ops": rows[k]["ops"],
+                        "window_idle_us": rows[k]["idle_s"] * 1e6})
+    # how far the profiler's device clock ran ahead of the host's (an
+    # operation cannot start before its launch); the split does not use it
+    out.append({"device_clock_lead_us": max(
+        (o.launch_ns - o.start_ns for o in ops if o.launch_ns is not None),
+        default=0) / 1e3})
+    return out
 
 
 def profile_window(path: str, fn, per: int, unit: str):
-    """Run ``fn`` under torch.profiler; print the busy share, the CUDA
-    kernels per ``unit`` (``per`` units in the window) and the top
-    kernels, and write the full tables to chiprun_out/."""
+    """Run ``fn`` under torch.profiler with span recording on; print the
+    busy share, the CUDA kernels per ``unit`` (``per`` units in the
+    window), the top kernels and the spans' rows, and write the full
+    tables to the output directory."""
     from torch.profiler import ProfilerActivity, profile
 
+    from quadruped_locomotion_tpu_torch.utils import logging as qlog
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    qlog.enable_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
+    qlog.disable_spans()
+    rows = span_rows(prof, qlog.collect_spans())
     events = prof.key_averages()
     # device-side rows only (kernels, copies): host operators carry the
     # same time again as the device time of what they launched
@@ -79,11 +141,13 @@ def profile_window(path: str, fn, per: int, unit: str):
     }), flush=True)
     print(events.table(sort_by="self_device_time_total", row_limit=15),
           flush=True)
+    for row in rows:
+        print(json.dumps(row), flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"profile_torch_{path}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=60) + "\n"
-        + events.table(sort_by="self_cpu_time_total", row_limit=25))
+        + "".join(json.dumps(row) + "\n" for row in rows))
 
 
 def profile_rollout(plant: str, dev) -> None:
@@ -192,6 +256,20 @@ def profile_qp(path: str, dev) -> None:
     profile_window(path, run, per, "solve" if path == "headline" else "call")
 
 
+def profile_qp_balance(dev) -> None:
+    import chip_smoke
+    from benchmark.drivers import fd_qp
+    from benchmark.harness import spec
+    from benchmark.harness.outcome import Context
+
+    ctx = Context(cell=spec.load_cell("qp.balance"), seed=chip_smoke.SEED,
+                  seconds=0.0, trace=True, device=dev, t0=time.time())
+    s = fd_qp.setup(ctx)
+    profile_window("qp_balance", lambda: fd_qp.window(ctx, s,
+                                                      fd_qp.TRACED_CALLS),
+                   fd_qp.TRACED_CALLS, "call")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", default="articulated", choices=PATHS)
@@ -210,6 +288,8 @@ def main() -> int:
     fk.build_kernel()
     if path in ("headline", "load_factors"):
         profile_qp(path, dev)
+    elif path == "qp_balance":
+        profile_qp_balance(dev)
     elif path == "estimated":
         profile_estimated(dev)
     else:

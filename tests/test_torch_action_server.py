@@ -42,12 +42,12 @@ from quadruped_locomotion_tpu_torch.api import messages as msgs
 from quadruped_locomotion_tpu_torch.api.continuous_actions import (
     VelocityTrotAction,
 )
-from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
 from quadruped_locomotion_tpu_torch.planning.steps import BASE_AUTO, LEG_NONE
 from quadruped_locomotion_tpu_torch.runtime.action_server import (
     FreeGaitActionServer,
 )
 from quadruped_locomotion_tpu_torch.types import RobotModel
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_server_golden.npz"
@@ -103,10 +103,10 @@ def test_windows_cover_their_events(golden):
 def test_window_matches_jax(golden, name):
     ticks = WINDOW_TICKS[name]
     srv, action = restore(golden, name)
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     copies0 = srv.host_copies
     got = run_window(srv, name, ticks, msgs, GOALS, host, action)
-    assert fd_qp_kernel.launches == 0
+    assert counters["qp.kernel_launches"] == 0
     # one copy per tick, plus one for the pose each appended goal is
     # resolved against and one for the executor state stop() reads (a
     # PREEMPT_NO stop reads nothing)

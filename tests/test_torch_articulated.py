@@ -33,12 +33,12 @@ from quadruped_locomotion_tpu_torch import convert
 from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
 from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
 from quadruped_locomotion_tpu_torch.model.dynamics import leg_mass_matrix
-from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
 from quadruped_locomotion_tpu_torch.ops.qp import QpSolution
 from quadruped_locomotion_tpu_torch.rollout import articulated as tart
 from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
 from quadruped_locomotion_tpu_torch.rollout.simulator import SimState
 from quadruped_locomotion_tpu_torch.types import BaseState, RobotModel
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_articulated_golden.npz"
@@ -207,10 +207,10 @@ def _port_inputs(golden: dict):
 
 
 def _run_port(golden: dict):
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     _, tel = cl.rollout(*_port_inputs(golden), int(golden["meta/ticks"]),
                         qp_backend="plain", device="cpu")  # default plant
-    assert fd_qp_kernel.launches == 0
+    assert counters["qp.kernel_launches"] == 0
     return {k: v.numpy() for k, v in tel.items()}
 
 

@@ -32,10 +32,10 @@ from quadruped_locomotion_tpu_torch import convert
 from quadruped_locomotion_tpu_torch.control import state_estimator as se
 from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
 from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
-from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
 from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
 from quadruped_locomotion_tpu_torch.rollout import estimated_loop as el
 from quadruped_locomotion_tpu_torch.types import RobotModel
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 REFS = ROOT / "tests" / "data" / "torch_port_slice4_refs.npz"
@@ -149,11 +149,12 @@ def _golden_inputs(golden):
 
 def _run_port(golden):
     model, params, gp, ep, els, cmd = _golden_inputs(golden)
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     _, tel = el.rollout_estimated(model, params, gp, ep,
                                   el.SensorParams.ideal("cpu"), els, cmd,
                                   int(golden["meta/ticks"]), device="cpu")
-    assert fd_qp_kernel.launches == 0  # the generic QP, never the kernel
+    # the generic QP, never the kernel
+    assert counters["qp.kernel_launches"] == 0
     return {k: v.numpy() for k, v in tel.items()}
 
 

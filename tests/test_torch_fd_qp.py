@@ -36,6 +36,7 @@ import torch
 
 from quadruped_locomotion_tpu_torch.control import force_distribution as tfd
 from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
@@ -314,14 +315,14 @@ def test_committed_problems_hold_the_recorded_qps(problems, chip):
 
 
 def test_auto_backend_on_cpu_runs_plain_and_counts_no_launch(problems):
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     G, g, D, d = (torch.from_numpy(problems[k][:N_STANCE]) for k in "GgDd")
     sol = tfd.solve_formed_qp_batched(G, g, D, d, iters=ITERS, backend="auto")
     plain = fd_qp_kernel.solve_fd_qp_plain(G, g, D, d, iters=ITERS)
     np.testing.assert_array_equal(sol.x.numpy(), plain[0].numpy())
     assert sol.y.shape == (N_STANCE, 0)
     assert (sol.iterations == ITERS).all()
-    assert fd_qp_kernel.launches == 0
+    assert counters["qp.kernel_launches"] == 0
 
 
 def test_kernel_backend_raises_on_cpu(problems):
@@ -350,11 +351,11 @@ def test_entry_major_launch_refuses_cpu_tensors(problems):
     entry-major launch) takes only contiguous float32 CUDA tensors in the
     callers' (B, E) layout; a CPU tensor raises before any build or
     launch."""
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     G, g, D, d = (torch.from_numpy(problems[k][:2]) for k in "GgDd")
     with pytest.raises(ValueError, match="CUDA tensor"):
         fd_qp_kernel.launch_fd_qp(G, g, D, d)
-    assert fd_qp_kernel.launches == 0
+    assert counters["qp.kernel_launches"] == 0
 
 
 PTXAS = (

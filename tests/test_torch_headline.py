@@ -44,6 +44,7 @@ from quadruped_locomotion_tpu_torch.rollout import simulator as tsim
 from quadruped_locomotion_tpu_torch.types import (
     BaseTarget, CfdParams, RobotModel, VmcGains,
 )
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 REFS = ROOT / "tests" / "data" / "torch_port_slice2_refs.npz"
@@ -78,10 +79,10 @@ def _solve_plain(refs):
     """The reference tile through the port's wrapper (plain version on the
     CPU): no kernel launch is counted."""
     p = _tile(refs)
-    fk.launches = fk.wls_launches = 0
+    counters["qp.kernel_launches"] = counters["qp.wls_launches"] = 0
     out = fk.solve_weighted_ls_fd_qp(
         *(torch.from_numpy(p[k].copy()) for k in "ASbWDd"), iters=15)
-    assert fk.launches == 0 and fk.wls_launches == 0
+    assert counters["qp.kernel_launches"] == counters["qp.wls_launches"] == 0
     return out
 
 
@@ -125,13 +126,13 @@ def check_load_factors(refs, backend):
     p = _balance_torch(refs)
     lf = torch.from_numpy(LF).expand(B_LF, 4)
     support = torch.ones((B_LF, 4), dtype=torch.bool)
-    fk.launches = 0
+    counters["qp.kernel_launches"] = 0
     sol = tfd.solve_fd_qp_batched(p["A"], p["b"], p["S"], p["W"], p["D"], p["d"],
                                   iters=25, backend=backend, load_factors=lf,
                                   support=support)
     first = tfd.solve_fd_qp_batched(p["A"], p["b"], p["S"], p["W"], p["D"],
                                     p["d"], iters=25, backend=backend)
-    assert fk.launches == 0
+    assert counters["qp.kernel_launches"] == 0
     A64 = refs["balance/A"].astype(np.float64)
     x = sol.x.numpy()
     x_ref = refs["balance/grf_distribute"].reshape(B_LF, 12)

@@ -100,6 +100,7 @@ def _run_sharded(mesh, refs: dict, pod=None) -> dict:
     )
     from quadruped_locomotion_tpu_torch.rollout.simulator import SimState
     from quadruped_locomotion_tpu_torch.types import BaseTarget
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     def inputs(cls, name):
         return convert.from_numpy(cls, convert.unflatten(refs, f"inputs/{name}/"),
@@ -139,7 +140,7 @@ def _run_sharded(mesh, refs: dict, pod=None) -> dict:
         sol, kkt, err = sweep(*pdist.shard_problem(pod, _problem(refs, "sweep")))
         out.update({"pod/x": pmesh.gather_batch(pod, sol.x),
                     "pod/global_kkt": kkt, "pod/global_err": err})
-    out["launches"] = fk.launches
+    out["launches"] = counters["qp.kernel_launches"]
     return convert.to_numpy(out)
 
 

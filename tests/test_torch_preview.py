@@ -26,10 +26,10 @@ import torch
 
 from quadruped_locomotion_tpu_torch import convert
 from quadruped_locomotion_tpu_torch.api.actions import load_action
-from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
 from quadruped_locomotion_tpu_torch.rollout import preview as pv
 from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
 from quadruped_locomotion_tpu_torch.types import RobotModel
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_preview_golden.npz"
@@ -95,9 +95,9 @@ def check_preview(ref, batch):
 @pytest.mark.parametrize("name", make_refs.PREVIEW_SCRIPTS)
 def test_preview_matches_jax(golden, name):
     ref = reference(golden, name)
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     check_preview(ref, port_preview(name, len(ref["times"])))
-    assert fd_qp_kernel.launches == 0
+    assert counters["qp.kernel_launches"] == 0
 
 
 def test_state_batch_round_trips(golden):

@@ -41,10 +41,10 @@ import torch
 from quadruped_locomotion_tpu_torch import convert
 from quadruped_locomotion_tpu_torch.control.contact_fsm import FsmState
 from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
-from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
 from quadruped_locomotion_tpu_torch.planning import steps
 from quadruped_locomotion_tpu_torch.rollout import script_loop as sl
 from quadruped_locomotion_tpu_torch.types import RobotModel
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_script_golden.npz"
@@ -72,10 +72,10 @@ def window_inputs(golden, name):
 
 def check_window(golden, name, ticks):
     ss0, sched = window_inputs(golden, name)
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     ssf, tel = sl.run_schedule(MODEL, ControllerParams.defaults("cpu"), sched,
                                ss0, ticks, device="cpu")
-    assert fd_qp_kernel.launches == 0
+    assert counters["qp.kernel_launches"] == 0
     ref = {k: golden[f"{name}/tel/{k}"][:ticks] for k in tel}
     for k, v in tel.items():
         assert v.shape == ref[k].shape, k

@@ -35,11 +35,11 @@ from quadruped_locomotion_tpu_torch import convert, sweep
 from quadruped_locomotion_tpu_torch.control import state_estimator as se
 from quadruped_locomotion_tpu_torch.control.locomotion import ControllerParams
 from quadruped_locomotion_tpu_torch.gait.phase import GaitParams
-from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
 from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
 from quadruped_locomotion_tpu_torch.rollout import estimated_loop as el
 from quadruped_locomotion_tpu_torch.terrain.heightfield import Heightfield
 from quadruped_locomotion_tpu_torch.types import RobotModel
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
 REFS = ROOT / "tests" / "data" / "torch_port_slice4_refs.npz"
@@ -142,11 +142,12 @@ def _port_inputs(golden: dict):
 
 def _run_port(golden: dict):
     """(telemetry, the final swing targets)."""
-    fd_qp_kernel.launches = 0
+    counters["qp.kernel_launches"] = 0
     args, terrain = _port_inputs(golden)
     ls, tel = cl.rollout(*args, int(golden["meta/ticks"]), terrain=terrain,
                          plant="articulated", qp_backend="plain", device="cpu")
-    assert fd_qp_kernel.launches == 0  # the CPU never reaches the kernel
+    # the CPU never reaches the kernel
+    assert counters["qp.kernel_launches"] == 0
     return ({k: v.numpy() for k, v in tel.items()},
             ls.gait.swing_targets.numpy())
 
