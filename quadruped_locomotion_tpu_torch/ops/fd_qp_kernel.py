@@ -181,10 +181,12 @@ def solve_fd_qp(G, g, D, d, iters: int = 15):
 
     CUDA tensors go to the kernel (one launch; raises if it cannot be
     built or launched); CPU tensors to :func:`solve_fd_qp_plain`. The
-    whole call is the span ``qp.solve``.
+    whole call is the span ``qp.solve``; B × ``iters`` is added to
+    ``counters["qp.instance_iterations"]``.
     """
     with qlog.span("qp.solve"):
         _check(G, g, D, d)
+        qlog.counters["qp.instance_iterations"] += G.shape[0] * iters
         if G.device.type == "cpu":
             return solve_fd_qp_plain(G, g, D, d, iters)
         if G.device.type != "cuda":

@@ -27,6 +27,9 @@ Mass bookkeeping as in the reference: the trunk keeps the controller's
 total mass minus the explicit link masses and loses the lumped legs'
 parallel-axis inertia. Every state tensor carries one leading scenario
 axis B; ``SimState.feet_world`` holds the pinned feet's anchors.
+
+:func:`graphed_step` is :func:`step` replayed from a CUDA graph on the
+card (``utils/cuda_graphs.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from torch.func import jacfwd, jvp, vmap
 from ..model.kinematics import (
     forward_kinematics, leg_com_positions_hip, link_rotations_hip, mv,
 )
-from ..types import GRAVITY, BaseState, RobotModel
+from ..types import GRAVITY, BaseState, RobotModel, const
+from ..utils.cuda_graphs import Graphed
 from ..utils.rotations import (
     cross, matrix_from_quat, quat_exp, quat_mul, quat_normalize, skew,
 )
@@ -147,7 +151,7 @@ def _dynamics_terms(model: RobotModel, base: BaseState, q, qd):
     kin_dot = {k: torch.einsum("b...j,bj->b...", j, v) for k, j in jac.items()}
 
     m_base, i_base = base_dynamic_params(model)
-    g_world = torch.tensor([0.0, 0.0, -GRAVITY], dtype=dtype, device=q.device)
+    g_world = const((0.0, 0.0, -GRAVITY), q)
 
     # the 13 bodies side by side: trunk, then 4 legs × 3 links
     def rots(tree):
@@ -255,7 +259,7 @@ def _substep(model: RobotModel, carry, tau, h, support_cmd, gz4, mu=None):
         f_t = mu * lam_n[..., None] * dir_f  # (B,4,2) world tangential
         f_ext = torch.cat([f_t, torch.zeros_like(f_t[..., :1])], dim=-1) \
             * slipping[..., None].to(dtype)
-        tangential = torch.tensor([True, True, False], device=q.device).repeat(4)
+        tangential = const((True, True, False) * 4, mask3b)
         mask3c = mask3b & ~(slipping.repeat_interleave(3, dim=-1) & tangential)
         tau_gen_f = tau_gen + mv(j_c.mT, f_ext.reshape(B, 12))
         vdot, lam3 = _constrained_accel(m_mat, h_vec, tau_gen_f, j_c, b_c,
@@ -313,6 +317,35 @@ def step(
     feet_world = torch.where(pinned[..., None], anchors, feet_fk)
     robot_new = robot.replace(base=base, q=q, qd=qd, tau=tau, support=pinned)
     return SimState(robot=robot_new, feet_world=feet_world, time=sim.time + dt)
+
+
+def _step_of(model, dt, substeps, friction_mu, sim, tau, support, gz4):
+    return step(model, sim, tau, dt, support=support, ground_height=gz4,
+                substeps=substeps, friction_mu=friction_mu)
+
+
+_STEP = Graphed(_step_of)
+
+
+def graphed_step(
+    model: RobotModel,
+    sim: SimState,
+    tau: torch.Tensor,
+    dt: float,
+    support: torch.Tensor | None = None,
+    ground_height=0.0,
+    substeps: int = SUBSTEPS,
+    friction_mu: float | None = None,
+) -> SimState:
+    """:func:`step` replayed on the card from a CUDA graph captured at the
+    first call of each model, ``dt``, ``substeps``, ``friction_mu`` and
+    layout of inputs (``utils/cuda_graphs.Graphed``; the KKT systems' LU
+    from cuSOLVER and cuBLAS at every batch); elsewhere :func:`step`."""
+    if support is None:
+        support = sim.robot.support
+    gz4 = torch.as_tensor(ground_height, dtype=tau.dtype,
+                          device=tau.device).expand(tau.shape[0], 4)
+    return _STEP((model, dt, substeps, friction_mu), sim, tau, support, gz4)
 
 
 def mass_matrix(model: RobotModel, base: BaseState, q: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -33,9 +34,11 @@ from ..gait import phase as phase_mod
 from ..gait.phase import GaitParams
 from ..model.kinematics import foot_velocities, forward_kinematics
 from ..types import (
-    RobotModel, TensorStruct, full_f32_matmuls, resolve_device, where_tree,
+    BaseTarget, RobotModel, TensorStruct, full_f32_matmuls, resolve_device,
+    where_tree,
 )
 from ..utils import logging as qlog
+from ..utils.cuda_graphs import Graphed
 from ..utils.rotations import cross, quat_rotate
 from . import articulated as artlib
 from . import simulator as simlib
@@ -56,9 +59,10 @@ def _no_plant_step(model, sim, tau, dt, **kw):
 
 
 # "articulated" (the default): the fully coupled 18-DoF floating-base
-# plant (rollout/articulated.py). "massless": trunk + swing-leg plant
-# (rollout/simulator.py). "none": controller only.
-PLANTS = {"articulated": artlib.step, "massless": simlib.step,
+# plant (rollout/articulated.py), replayed from a CUDA graph on the card.
+# "massless": trunk + swing-leg plant (rollout/simulator.py). "none":
+# controller only.
+PLANTS = {"articulated": artlib.graphed_step, "massless": simlib.step,
           "none": _no_plant_step}
 
 
@@ -132,6 +136,17 @@ def init_locomotion_mixed(
                            fsm=init_fsm_state((B,), dev, sim.feet_world.dtype))
 
 
+class SubstepInputs(NamedTuple):
+    """What a substep's controller and plant take besides the controller's
+    state: handed to a ``telemetry_fn`` as its fifth argument where
+    :func:`planner_tick` is asked for it (``telemetry_inputs=True``)."""
+
+    target: BaseTarget  # the gait engine's base target for the VMC
+    sim: SimState  # the plant's state: the pinned set in sim.robot.support,
+    # the pinned feet's anchors in sim.feet_world
+    ground_height: torch.Tensor  # (B,4) the ground under sim.feet_world
+
+
 def _stack(trees: list):
     """Stack a list of same-layout trees (tensors, dicts, dataclasses,
     NamedTuples) leaf by leaf along a new leading axis."""
@@ -147,6 +162,41 @@ def _stack(trees: list):
     if isinstance(t0, tuple):
         return type(t0)(*(_stack(list(v)) for v in zip(*trees)))
     raise TypeError(f"cannot stack {type(t0)!r}")
+
+
+def _contact_stage(model, terrain, sim, fsm_state, support, sw_norm,
+                   st_norm, pos_w, vel_w, acc_w, normals):
+    """A substep's contact sensing, FSM and swing reflexes: (ground
+    height under each foot, FSM state, FSM output, reflexed swing
+    references, the controller's robot state)."""
+    gz = (torch.zeros_like(sim.feet_world[..., 2]) if terrain is None
+          else terrain.height_at(sim.feet_world[..., :2]))
+    # reconcile the gait's support with measured contact, then reflexes
+    contact = simlib.contact_sensor(sim, ground_height=gz)
+    fsm_state, fsm = fsm_step(
+        fsm_state, support, contact, sw_norm, st_norm, sim.robot.q,
+        foot_speed_tangential=measured_foot_speed_tangential(model, sim.robot),
+    )
+    pos_r, vel_r, acc_r = apply_swing_reflexes(
+        pos_w, vel_w, acc_w, sim.feet_world, fsm, ground_height=gz)
+    state = sim.robot.replace(support=fsm.support, surface_normal=normals)
+    return gz, fsm_state, fsm, pos_r, vel_r, acc_r, state
+
+
+def _finish_stage(model, params, state, ctx, sol, q_freeze, freeze):
+    """The QP's forces to torques, with the lost-contact freeze reflex
+    (hold the posture stored at loss): (torques, diagnostics)."""
+    tau, diag = locomotion_finish(model, params, state, ctx, sol)
+    tau_freeze = joint_pd_gravity_torques(model, state, q_freeze,
+                                          torch.zeros_like(q_freeze))
+    return torch.where(freeze[..., None], tau_freeze, tau), diag
+
+
+# The substep's stages, each replayed from a CUDA graph on the card
+# (utils/cuda_graphs.py); the QP's one kernel launch stays eager.
+STAGES = {"contact": Graphed(_contact_stage),
+          "prepare": Graphed(locomotion_prepare),
+          "finish": Graphed(_finish_stage)}
 
 
 def _plant(plant: str):
@@ -167,6 +217,7 @@ def planner_tick(
     friction_mu: float | None = None,
     qp_backend: str = "auto",
     telemetry_fn=None,
+    telemetry_inputs: bool = False,
 ):
     """One 100 Hz planner tick + 4 control/physics substeps over the batch.
     ``terrain``: a ``Heightfield`` with one map per scenario (None is
@@ -176,14 +227,25 @@ def planner_tick(
     ``telemetry_fn(state, tau, diag, ctx) -> tree``, if given, collects
     per-substep extras (the controller's state, the applied torques, the
     balance diagnostics and the formed QP of each substep); the second
-    result is then (kkt, extras stacked over the substeps).
+    result is then (kkt, extras stacked over the substeps). With
+    ``telemetry_inputs`` it is called with a fifth argument, the
+    substep's :class:`SubstepInputs` (the plant's whole input with
+    ``tau`` and ``state.support``).
 
     Spans: the tick is ``loop.tick``, the gait engine
     ``loop.gait_advance``; each substep's ``loop.contact_fsm`` (contact
     sensor, FSM, reflexes), ``loop.prepare``, ``loop.qp``,
-    ``loop.finish`` (with the freeze reflex) and ``loop.plant`` carry
-    ``substep`` 0-3."""
+    ``loop.finish`` (with the freeze reflex), ``loop.record`` (the
+    ``telemetry_fn`` call, where one is given) and ``loop.plant`` carry
+    ``substep`` 0-3.
+
+    On the card the contact, prepare and finish stages and the
+    articulated plant are replayed from CUDA graphs (:data:`STAGES`,
+    ``articulated.graphed_step``), captured at their first call; the gait
+    engine, the QP and the ``telemetry_fn`` run eagerly."""
     plant_step = _plant(plant)
+    contact, prepare, finish = (STAGES[k]
+                                for k in ("contact", "prepare", "finish"))
     plant_kwargs = ({"friction_mu": friction_mu}
                     if friction_mu is not None and plant == "articulated"
                     else {})
@@ -204,39 +266,25 @@ def planner_tick(
         extras = []
         for i in range(CONTROL_SUBSTEPS):
             with qlog.span("loop.contact_fsm", substep=i):
-                # ground height under each foot
-                gz = (torch.zeros_like(sim.feet_world[..., 2])
-                      if terrain is None
-                      else terrain.height_at(sim.feet_world[..., :2]))
-                # reconcile the gait's support with measured contact, then
-                # reflexes
-                contact = simlib.contact_sensor(sim, ground_height=gz)
-                fsm_state, fsm = fsm_step(
-                    fsm_state, support, contact, sw_norm, st_norm,
-                    sim.robot.q,
-                    foot_speed_tangential=measured_foot_speed_tangential(
-                        model, sim.robot),
-                )
-                pos_r, vel_r, acc_r = apply_swing_reflexes(
-                    pos_w, vel_w, acc_w, sim.feet_world, fsm, ground_height=gz)
-                state = sim.robot.replace(support=fsm.support,
-                                          surface_normal=normals)
+                gz, fsm_state, fsm, pos_r, vel_r, acc_r, state = contact(
+                    (model, terrain), sim, fsm_state, support, sw_norm,
+                    st_norm, pos_w, vel_w, acc_w, normals)
             with qlog.span("loop.prepare", substep=i):
-                ctx = locomotion_prepare(model, params, state, target,
-                                         pos_r, vel_r, acc_r)
+                ctx = prepare((model, params), state, target,
+                              pos_r, vel_r, acc_r)
             with qlog.span("loop.qp", substep=i):
                 sol = solve_formed_qp_batched(ctx.G, ctx.g, ctx.D, ctx.d,
                                               iters=qp_iters,
                                               backend=qp_backend)
             with qlog.span("loop.finish", substep=i):
-                tau, diag = locomotion_finish(model, params, state, ctx, sol)
-                # lost-contact freeze reflex: hold the posture stored at loss
-                tau_freeze = joint_pd_gravity_torques(
-                    model, state, fsm.q_freeze,
-                    torch.zeros_like(fsm.q_freeze))
-                tau = torch.where(fsm.freeze[..., None], tau_freeze, tau)
+                tau, diag = finish((model, params), state, ctx, sol,
+                                   fsm.q_freeze, fsm.freeze)
             if telemetry_fn is not None:
-                extras.append(telemetry_fn(state, tau, diag, ctx))
+                with qlog.span("loop.record", substep=i):
+                    args = (state, tau, diag, ctx)
+                    if telemetry_inputs:
+                        args += (SubstepInputs(target, sim, gz),)
+                    extras.append(telemetry_fn(*args))
             with qlog.span("loop.plant", substep=i):
                 sim = plant_step(model, sim, tau, CONTROL_DT,
                                  support=fsm.support, ground_height=gz,

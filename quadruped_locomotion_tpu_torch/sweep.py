@@ -39,6 +39,7 @@ EXTENT = 2.4  # the map spans [-EXTENT, EXTENT) in x and y
 # half-widths (x, y) of the flat spawn box; bumps ramp in over 0.4 box units
 FLAT_ZONE = (0.65, 0.45)
 PLANT = "articulated"
+QP_ITERS = 15  # interior-point iterations of each substep's QPs (the default)
 
 
 def cubic_resize(a: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -95,60 +96,79 @@ class Scenarios:
                 self.command)
 
 
-def build_scenarios(batch: int, seed: int = 0, device=None) -> Scenarios:
-    """The config-5 scenario batch on ``device`` (default CUDA; raises
-    where it is absent), drawn as ``bench.build_scenarios`` draws it from
+def draw_scenarios(batch: int, seed: int = 0) -> dict:
+    """The config-5 scenario axes of ``batch`` scenarios as numpy arrays,
+    drawn as ``bench.build_scenarios`` draws them from
     ``numpy.random.default_rng(seed)``:
 
-    * gait: a 3:1 trot/pace interleave (scenario i paces where
-      i % 4 == 3), each with its defaults and its init table;
-    * velocity: vx in [-0.1, 0.4] (trot) / [0, 0.15] (pace), vy ±0.1 /
-      ±0.05, yaw rate ±0.3 / ±0.15 rad/s; both branches of each choice
-      are drawn, in that order;
-    * terrain: 48×48 maps at 0.1 m from an (8, 8) normal grid, cubic
-      upsampling, amplitudes in [0.01, 0.03] m except for the flat
-      scenarios (i % 4 == 2), ramped in beyond a flat spawn box.
+    * ``pace`` (B,) bool: a 3:1 trot/pace interleave (scenario i paces
+      where i % 4 == 3);
+    * ``vx``, ``vy``, ``wz`` (B,): vx in [-0.1, 0.4] (trot) / [0, 0.15]
+      (pace), vy ±0.1 / ±0.05, yaw rate ±0.3 / ±0.15 rad/s; both branches
+      of each choice are drawn, in that order;
+    * ``coarse`` (B, 8, 8) float32: the normal grids the maps are
+      upsampled from, and ``amp`` (B,) float32: amplitudes in
+      [0.01, 0.03] m, 0 for the flat scenarios (i % 4 == 2).
     """
-    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    model = RobotModel.simpledog(dev)
-    params = ControllerParams.defaults(dev)
-
     idx = np.arange(batch)
     is_pace = idx % 4 == 3
-    pace = torch.as_tensor(is_pace, device=dev)
-    gp = where_tree(pace, GaitParams.pace_defaults(dev).per_scenario(batch),
-                    GaitParams.trot_defaults(dev).per_scenario(batch))
-    gait_type = torch.where(pace, phase_mod.PACE, phase_mod.TROT)
-    ls0 = cl.init_locomotion_mixed(model, gp, gait_type, device=dev)
-
     vx = np.where(is_pace, rng.uniform(0.0, 0.15, batch),
                   rng.uniform(-0.1, 0.4, batch))
     vy = np.where(is_pace, rng.uniform(-0.05, 0.05, batch),
                   rng.uniform(-0.1, 0.1, batch))
     wz = np.where(is_pace, rng.uniform(-0.15, 0.15, batch),
                   rng.uniform(-0.3, 0.3, batch))
-    cmd = cl.Command(
-        linear_velocity=torch.as_tensor(
-            np.stack([vx, vy, np.zeros(batch)], axis=1), dtype=torch.float32,
-            device=dev),
-        yaw_rate=torch.as_tensor(wz, dtype=torch.float32, device=dev))
-
     coarse = rng.normal(size=(batch, COARSE_CELLS, COARSE_CELLS)).astype(
         np.float32)
     amp = np.where(idx % 4 == 2, 0.0,
                    rng.uniform(0.01, 0.03, batch)).astype(np.float32)
-    terrain = heightfields(coarse, amp, dev)
+    return {"pace": is_pace, "vx": vx, "vy": vy, "wz": wz, "coarse": coarse,
+            "amp": amp}
+
+
+def scenarios_from_draws(draws: dict, device=None) -> Scenarios:
+    """The scenario batch of :func:`draw_scenarios`' ``draws`` on
+    ``device`` (default CUDA; raises where it is absent): each gait with
+    its defaults and its init table, the velocity commands, and 48×48
+    maps at 0.1 m from the coarse grids (cubic upsampling, scaled by the
+    amplitudes, ramped in beyond a flat spawn box)."""
+    dev = resolve_device(device)
+    model = RobotModel.simpledog(dev)
+    params = ControllerParams.defaults(dev)
+    batch = len(draws["pace"])
+    pace = torch.as_tensor(draws["pace"], device=dev)
+    gp = where_tree(pace, GaitParams.pace_defaults(dev).per_scenario(batch),
+                    GaitParams.trot_defaults(dev).per_scenario(batch))
+    gait_type = torch.where(pace, phase_mod.PACE, phase_mod.TROT)
+    ls0 = cl.init_locomotion_mixed(model, gp, gait_type, device=dev)
+    cmd = cl.Command(
+        linear_velocity=torch.as_tensor(
+            np.stack([draws["vx"], draws["vy"], np.zeros(batch)], axis=1),
+            dtype=torch.float32, device=dev),
+        yaw_rate=torch.as_tensor(draws["wz"], dtype=torch.float32,
+                                 device=dev))
+    terrain = heightfields(draws["coarse"], draws["amp"], dev)
     return Scenarios(model, params, gp, ls0, cmd, terrain)
 
 
-def run(sc: Scenarios, ticks: int, qp_backend: str = "auto"):
+def build_scenarios(batch: int, seed: int = 0, device=None) -> Scenarios:
+    """The config-5 scenario batch on ``device`` (default CUDA; raises
+    where it is absent): :func:`draw_scenarios` from ``seed``, then
+    :func:`scenarios_from_draws`."""
+    dev = resolve_device(device)
+    return scenarios_from_draws(draw_scenarios(batch, seed), dev)
+
+
+def run(sc: Scenarios, ticks: int, qp_backend: str = "auto",
+        qp_iters: int = QP_ITERS):
     """``ticks`` planner ticks of the scenarios from their start on the
-    scenarios' device. Returns (final state, telemetry of every tick:
-    (T, B, ...))."""
+    scenarios' device, each substep's QPs solved in ``qp_iters``
+    interior-point iterations. Returns (final state, telemetry of every
+    tick: (T, B, ...))."""
     return cl.rollout(sc.model, sc.params, sc.gait_params, sc.ls0,
-                      sc.command, ticks, terrain=sc.terrain, plant=PLANT,
-                      qp_backend=qp_backend,
+                      sc.command, ticks, qp_iters=qp_iters,
+                      terrain=sc.terrain, plant=PLANT, qp_backend=qp_backend,
                       device=sc.ls0.sim.feet_world.device)
 
 
@@ -175,21 +195,24 @@ def _summarize(sc: Scenarios, tel: dict, wall_s: float) -> dict:
     }
 
 
-def measure(batch: int = 4096, ticks: int = 100, device=None) -> dict:
+def measure(batch: int = 4096, ticks: int = 100, device=None,
+            qp_iters: int = QP_ITERS) -> dict:
     """Time the whole closed loop (gait engine, contact FSM, controller,
     one batched QP launch per control substep, articulated plant) over
     ``batch`` config-5 scenarios for ``ticks`` planner ticks, after a
-    one-tick warm-up, with the host clock around a synchronised run.
-    Returns bench.py's fields: ``rt_factor`` (scenario-sim-seconds per
-    wall-second), ``wall_s``, ``finite``, ``upright_frac``, ``p99_kkt``,
-    ``batch``, ``ticks``, ``scenario_axes``."""
+    one-tick warm-up, with the host clock around a synchronised run; the
+    QPs take ``qp_iters`` interior-point iterations. Returns bench.py's
+    fields: ``rt_factor`` (scenario-sim-seconds per wall-second),
+    ``wall_s``, ``finite``, ``upright_frac``, ``p99_kkt``, ``batch``,
+    ``ticks``, ``qp_iters``, ``scenario_axes``."""
     dev = resolve_device(device)
     full_f32_matmuls()
     sc = build_scenarios(batch, 0, dev)
-    run(sc, 1)  # warm-up: first-use costs of the kernels and libraries
+    run(sc, 1, qp_iters=qp_iters)  # warm-up: first-use costs
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    _, tel = run(sc, ticks)
+    _, tel = run(sc, ticks, qp_iters=qp_iters)
     sync()
-    return _summarize(sc, tel, time.perf_counter() - t0)
+    return {**_summarize(sc, tel, time.perf_counter() - t0),
+            "qp_iters": qp_iters}

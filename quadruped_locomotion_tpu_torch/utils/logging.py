@@ -21,9 +21,12 @@ program's spans and counters, and profiler sessions (≙
   captures; a graph's replay runs no host code and records no span.
 * :data:`counters` — named integer counters, always on:
   ``qp.kernel_launches`` (launches of the QP kernel),
-  ``qp.kernel_instances`` (the QP instances those launches solved) and
+  ``qp.kernel_instances`` (the QP instances those launches solved),
   ``qp.wls_launches`` (``solve_weighted_ls_fd_qp`` calls that launched
-  it).
+  it) and ``qp.instance_iterations`` (the interior-point iterations
+  ``ops.fd_qp_kernel.solve_fd_qp`` asked for, B × ``iters`` a call, on
+  the card and off it: what a caller's iteration count above the
+  default 15 costs).
 * :func:`profiler_device_ops` and :func:`attribute` — the device
   operations of a profiled window, each joined to the CUDA runtime call
   that launched it and put down to the innermost span open at that
