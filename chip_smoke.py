@@ -1,6 +1,7 @@
-"""GPU smoke run of the PyTorch port: builds the CUDA kernel, holds it
-against its plain PyTorch version, and drives every ported path through
-it: the massless and articulated closed loops, the QP headline, the
+"""GPU smoke run of the PyTorch port: builds the CUDA kernels (the QP's
+and the articulated plant's), holds each against its plain PyTorch
+version, and drives every ported path through them: the massless and
+articulated closed loops, the QP headline, the
 load-factor double solve and the config-5 scenario sweep; then the
 EKF-estimated closed loop, scripted motion (the preview of every bundled
 motion script and its closed loop) and the 400 Hz runtime (the controller
@@ -53,11 +54,28 @@ Phases, each of which raises (exit code 1) when a gate fails:
    on the problems eliminated with the kernel's first solution):
    objective gap median <= 1e-4 and p99 <= 1e-3; KKT p99 <= 1e-3. The
    end-to-end gap against the "plain" backend is printed.
-7. The articulated main path: ``rollout(plant="articulated")`` (the
+7. The plant's kernel: build ``csrc/articulated_step.cu`` (fails on
+   spills or fewer than 4 blocks an SM; prints ptxas's report and the
+   launch geometry); ``articulated.step`` (one launch) against the
+   float64 ``step_plain`` on the same card states: the seeded rest,
+   trot, release, near-straight knee, Coulomb slip (mu = 0.6) and
+   touchdown states at B = 4096 and 32768, and the last plant step of a
+   planner tick of 32768 config-5 scenarios from the standing start (the
+   sweep cell's shape; its 4 plant launches counted). Gates, away from
+   decisions that float32 rounding can turn (a foot within 1e-5 m of the
+   contact tolerance or the reach share, a force within 0.5 N of the
+   release threshold or the cone), which must leave at least half the
+   scenarios: each state group within 3e-3 as ``plant_state_rel`` reads
+   it, pin states equal, feet within 1e-5 m; two launches equal bit for
+   bit; +1 ``plant.kernel_launches`` and +B ``plant.kernel_instances`` a
+   step. Times the kernel (CUDA events) at B = 32768 on the sweep's
+   states and at 4096, with friction at both, and the plain float32 step.
+   Then the articulated main path: ``rollout(plant="articulated")`` (the
    default plant) over B = 4096 trot scenarios for ``--art-ticks``
    planner ticks (default 25, cut from 50 to make room for phase 15).
-   Gates: 4 launches per tick, finite telemetry, upright fraction
-   >= 0.99 at the end, a 5-tick run through
+   Gates: 4 QP and 4 plant kernel launches per tick, finite telemetry,
+   upright fraction >= 0.99 at the end, the rollout's last plant step
+   held against the float64 plain step as above, a 5-tick run through
    the plain QP within 1e-3 m of the kernel run; the rollout's worst-KKT
    QP, re-solved alone, gives the kernel's in-rollout answer again.
 8. Latency at B = 1 (bench.py's ``_latency_measure``, through the bench
@@ -71,7 +89,8 @@ Phases, each of which raises (exit code 1) when a gate fails:
    planner ticks (default 50, cut from 100 for phase 15; the dump recipe
    passes --sweep-ticks 100) after a one-tick warm-up, with the
    worst-QP and foothold taps inside the timed window. Gates: exactly 4
-   kernel launches per tick (the warm-up's included), finite telemetry,
+   QP and 4 plant kernel launches per tick (the warm-up's included),
+   finite telemetry,
    upright fraction (base over the local ground > 0.25 m) >= 0.9
    (bench.py's health check), QP KKT p99 <= 1e-2, the sweep's worst-KKT
    QP re-solved alone gives its in-loop answer bit for bit, and a 5-tick
@@ -84,8 +103,9 @@ Phases, each of which raises (exit code 1) when a gate fails:
    realistic sensors from a seeded generator on the card. Gates (the bounds of
    tests/test_estimated_loop.py): finite telemetry, base height in
    (0.3, 0.5) m throughout, median velocity error from tick 50 on
-   < 0.12 m/s, every scenario's final position error < 0.25 m, and no
-   kernel launch (its QP is the generic IPM, as in the JAX package).
+   < 0.12 m/s, every scenario's final position error < 0.25 m, no QP
+   kernel launch (its QP is the generic IPM, as in the JAX package) and
+   4 plant kernel launches per tick.
 11. The kinematic preview of the 13 bundled motion scripts, each
    compiled by the port's registry against the default 0.4 m stance and
    previewed up to the committed JAX preview's end (its done tick + 10;
@@ -188,9 +208,11 @@ headline's worst-KKT instances), with the kernel's answers, to an .npz
 (``tests/test_torch_fd_qp.py`` holds the committed one against the JAX
 solvers).
 
-The line before the last is the ``{"kernels": [...]}`` record, whose
-launch counts sum every main-path phase (graph replays included, the
-kernel-vs-plain comparisons excluded); the last line is
+The line before the last is the ``{"kernels": [...]}`` record (the QP
+kernel through ``solve_fd_qp`` and ``solve_weighted_ls_fd_qp``, the
+plant's kernel), whose launch counts sum every main-path phase (graph
+replays included, the kernel-vs-plain comparisons excluded; the plant's
+in this process, by ``plant.kernel_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -787,8 +809,356 @@ def check_load_factors(batch: int, device) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 7: the articulated main path
+# phase 7: the plant's kernel and the articulated main path
 # --------------------------------------------------------------------------
+
+PLANT = "plant.kernel_launches"  # the plant kernel's launch counter
+PLANT_INSTANCES = "plant.kernel_instances"  # the scenarios those stepped
+PLANT_BATCHES = (4096, 32768)  # the smoke's batch and the sweep cell's
+PLANT_KINDS = ("rest", "trot", "release", "knee", "slip", "touchdown")
+PLANT_STATE_REL = 3e-3  # the largest state-group error (plant_state_rel)
+PLANT_OUT = ("position", "quaternion", "linear_velocity", "angular_velocity",
+             "q", "qd", "pinned", "anchors")
+
+
+def plant_states(kind: str, B: int, device, seed: int = 0):
+    """(model, sim, tau, support, ground height (B,4), friction_mu) of B
+    seeded plant states of one kind: ``rest`` (the standing start, every
+    foot pinned under holding torques), ``trot`` (one diagonal swinging),
+    ``release`` (a pinned foot whose knee torque lifts it: its stick
+    normal force comes out negative), ``knee`` (a pinned leg within 1e-3
+    rad of straight, beyond the reach share), ``slip`` (the base sliding
+    over pinned feet under a friction coefficient of 0.6) and
+    ``touchdown`` (swing feet 1.5 mm over the ground while the base sinks
+    at 0.5 m/s: they touch in the second internal substep)."""
+    from quadruped_locomotion_tpu_torch.control.force_distribution import (
+        stance_torques,
+    )
+    from quadruped_locomotion_tpu_torch.model.kinematics import (
+        forward_kinematics,
+    )
+    from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
+    from quadruped_locomotion_tpu_torch.types import GRAVITY, RobotModel
+    from quadruped_locomotion_tpu_torch.utils.rotations import quat_rotate
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    model = RobotModel.simpledog(device)
+    sim = simlib.default_stance_state(model, height=0.4, batch=(B,))
+    robot = sim.robot
+    q, qd, pinned = robot.q.clone(), robot.qd.clone(), robot.support.clone()
+    support = torch.ones(B, 4, dtype=torch.bool, device=device)
+    swing = torch.tensor([False, True, False, True], device=device)
+    v = t(rng.normal(0.0, 0.05, (B, 3)))
+    w = t(rng.normal(0.0, 0.1, (B, 3)))
+    mu = None
+    if kind == "rest":
+        v, w = torch.zeros_like(v), torch.zeros_like(w)
+    elif kind == "trot":
+        support[:, swing] = False
+        pinned[:, swing] = False
+        q[:, swing] += t(rng.uniform(-0.3, 0.3, (B, 2, 3)))
+        qd += t(rng.normal(0.0, 2.0, (B, 4, 3)))
+    elif kind == "knee":
+        q[:, 0, 2] = t(rng.uniform(-1e-3, 1e-3, B))
+    elif kind == "slip":
+        v[:, :2] += t(rng.uniform(-0.4, 0.4, (B, 2)))
+        mu = 0.6
+    elif kind == "touchdown":
+        pinned[:, swing] = False
+        v = t(np.broadcast_to([0.0, 0.0, -0.5], (B, 3)))
+    base = robot.base.replace(linear_velocity=v, angular_velocity=w)
+    robot = robot.replace(base=base, q=q, qd=qd, support=pinned)
+    # holding torques: each foot pushing a quarter of the weight down, and
+    # seeded noise of 2 N·m
+    down = torch.zeros(B, 4, 3, device=device)
+    down[..., 2] = -float(model.total_mass) * GRAVITY / 4.0
+    tau = stance_torques(model, robot, down) + t(rng.normal(0.0, 2.0, (B, 4, 3)))
+    if kind == "release":  # leg 0's knee torque lifts its foot
+        tau[:, 0, 1] = t(rng.uniform(30.0, 40.0, B))
+        tau[:, 0, 2] = t(rng.uniform(-40.0, -30.0, B))
+    feet = base.position[:, None] + quat_rotate(
+        base.quaternion[:, None], forward_kinematics(model, q))
+    gz = torch.zeros(B, 4, device=device)
+    if kind == "touchdown":
+        gz = feet[..., 2] - 0.0015
+    sim = sim.replace(robot=robot,
+                      feet_world=torch.where(pinned[..., None],
+                                             sim.feet_world, feet))
+    return model, sim, tau, support, gz, mu
+
+
+def as_float64(tree):
+    """``tree`` with its floating-point tensors in float64."""
+    from quadruped_locomotion_tpu_torch.types import map_tensors
+
+    return map_tensors(tree, lambda x: x.double() if x.is_floating_point()
+                       else x)
+
+
+def plant_outputs(sim) -> dict:
+    """A plant step's result by :data:`PLANT_OUT`'s names."""
+    r = sim.robot
+    return dict(zip(PLANT_OUT, (r.base.position, r.base.quaternion,
+                                r.base.linear_velocity,
+                                r.base.angular_velocity, r.q, r.qd,
+                                r.support, sim.feet_world)))
+
+
+def _plant_groups(out: dict) -> dict:
+    """The state groups ``benchmark/reference`` judges, by its names."""
+    names = {"position": "p", "quaternion": "quat", "linear_velocity": "v",
+             "angular_velocity": "w", "q": "q", "qd": "qd"}
+    return {n: out[k] for k, n in names.items()}
+
+
+def plant_plain64(model, sim, tau, support, gz, mu) -> dict:
+    """The plain step (``articulated.step_plain``) in float64."""
+    from quadruped_locomotion_tpu_torch.rollout import articulated as art
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+
+    return plant_outputs(art.step_plain(
+        as_float64(model), as_float64(sim), tau.double(), cl.CONTROL_DT, support=support,
+        ground_height=gz.double(), friction_mu=mu))
+
+
+def plant_near_decisions(model, sim, tau, support, gz, mu) -> torch.Tensor:
+    """(B,) scenarios with a decision that float32 rounding can turn, as
+    ``benchmark/reference/loop.MARGINS`` has them, in either substep of
+    the float64 plain step: a foot's height within 1e-5 m of the contact
+    tolerance or its extension within 1e-5 m of the reach share; a normal
+    force within 0.5 N of the release threshold; with ``mu``, a tangential
+    force within 0.5 N of the cone."""
+    from quadruped_locomotion_tpu_torch.rollout import articulated as art
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
+
+    model, tau, gz = as_float64(model), tau.double(), gz.double()
+    base, q, qd = sim.robot.base, sim.robot.q, sim.robot.qd
+    carry = as_float64((base, q, qd, sim.robot.support, sim.feet_world))
+    B, h = tau.shape[0], cl.CONTROL_DT / art.SUBSTEPS
+    near = torch.zeros(B, dtype=torch.bool, device=tau.device)
+    for _ in range(art.SUBSTEPS):
+        base, q, qd, pinned, anchors = carry
+        m_mat, h_vec, kin, jac, kin_dot, kin_ddot = art._dynamics_terms(
+            model, base, q, qd)
+        feet = kin["feet"]
+        reach = torch.sqrt(model.d ** 2 + (model.l1 + model.l2) ** 2)
+        hips = base.position[:, None] + model.hip_pos @ kin["base_rot"].mT
+        ext = torch.linalg.norm(feet - hips, dim=-1)
+        over = feet[..., 2] - (gz + simlib.CONTACT_TOL)
+        mask = support & (pinned | (over <= 0)) & (ext < art.REACH_SHARE * reach)
+        near |= (support & ~pinned & (over.abs() < 1e-5)).any(-1)
+        near |= (support & ((ext - art.REACH_SHARE * reach).abs() < 1e-5)).any(-1)
+        anchors = torch.where((mask & ~pinned)[..., None], torch.cat(
+            [feet[..., :2], gz[..., None]], -1), anchors)
+        j_c = jac["feet"].reshape(B, 12, 18)
+        b_c = (-kin_ddot["feet"] - 2.0 / art.BAUMGARTE_TAU * kin_dot["feet"]
+               - (feet - anchors) / art.BAUMGARTE_TAU ** 2).reshape(B, 12)
+        tau_gen = torch.cat([torch.zeros_like(b_c[:, :6]),
+                             (tau - model.joint_damping * qd).reshape(B, 12)], -1)
+        for solve in range(2):
+            _, lam = art._constrained_accel(m_mat, h_vec, tau_gen, j_c, b_c,
+                                            mask.repeat_interleave(3, -1))
+            lam = torch.where(mask[..., None], lam, torch.zeros_like(lam))
+            if solve == 0:
+                near |= (mask & (lam[..., 2] - art.RELEASE_FORCE).abs().lt(0.5)).any(-1)
+                mask = mask & (lam[..., 2] >= art.RELEASE_FORCE)
+        if mu is not None:
+            cone = torch.linalg.norm(lam[..., :2], dim=-1) - mu * lam[..., 2].clamp(min=0)
+            near |= (mask & (cone.abs() < 0.5)).any(-1)
+        carry, _ = art._substep(model, carry, tau, h, support, gz, mu=mu)
+    return near
+
+
+def plant_readings(got: dict, sim, want: dict, near) -> dict:
+    """The kernel's step ``got`` against the float64 plain step ``want``
+    from ``sim``, away from the near decisions ``near`` (B,): the largest
+    state-group error as ``plant_state_rel`` reads it (the largest
+    difference over the group's largest change in the step plus its
+    floor), whether the pin states are equal, the largest gap of the feet
+    (anchors and FK), and the largest absolute difference of any float
+    output."""
+    from benchmark.reference.loop import state_errors
+
+    far = ~near.cpu()
+    err = state_errors(_plant_groups(as_float64(want)), _plant_groups(as_float64(got)),
+                       _plant_groups(as_float64(plant_outputs(sim)))).cpu()
+    diff = {k: (got[k].double() - want[k].double()).abs().flatten(1).amax(-1)
+            .cpu() for k in PLANT_OUT if k != "pinned"}
+    worst = lambda x: float(x[far].max()) if far.any() else float("nan")  # noqa: E731
+    return dict(scenarios=int(far.numel()), near=int(near.sum()),
+                far_share=far.float().mean().item(), state_rel=worst(err),
+                pins_equal=bool(torch.equal(got["pinned"].cpu()[far],
+                                            want["pinned"].cpu()[far])),
+                feet_gap_m=worst(diff["anchors"]),
+                max_abs_err=max(worst(d) for d in diff.values()))
+
+
+def plant_gates(r: dict, label: str) -> None:
+    """Raises unless at least half the scenarios hold no near decision
+    and, on those, each state group is within :data:`PLANT_STATE_REL`,
+    the pin states are equal and the feet within 1e-5 m."""
+    if not (r["far_share"] >= 0.5 and r["state_rel"] <= PLANT_STATE_REL
+            and r["pins_equal"] and r["feet_gap_m"] <= 1e-5):
+        raise AssertionError(f"plant kernel against the float64 plain step, "
+                             f"{label}: {r}")
+
+
+class PlantTap:
+    """Context manager that wraps ``closed_loop.PLANTS["articulated"]`` for
+    one run and keeps a copy of the inputs of its last call, as
+    (model, sim, tau, support, ground height (B,4), friction_mu)."""
+
+    def __init__(self, cl):
+        self.cl, self.step = cl, cl.PLANTS["articulated"]
+        self.last: tuple | None = None
+
+    def __enter__(self):
+        self.cl.PLANTS["articulated"] = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cl.PLANTS["articulated"] = self.step
+
+    def __call__(self, model, sim, tau, dt, support=None, ground_height=0.0,
+                 **kw):
+        from quadruped_locomotion_tpu_torch.types import map_tensors
+
+        gz = torch.as_tensor(ground_height, dtype=tau.dtype,
+                             device=tau.device).expand(tau.shape[0], 4)
+        self.last = (model, map_tensors(sim, torch.clone), tau.clone(),
+                     (sim.robot.support if support is None else support)
+                     .clone(), gz.clone(), kw.get("friction_mu"))
+        return self.step(model, sim, tau, dt, support=support,
+                         ground_height=ground_height, **kw)
+
+
+def hold_plant(model, sim, tau, support, gz, mu, label: str) -> dict:
+    """One launch of the plant's kernel (``articulated.step``) held
+    against the float64 plain step on the same inputs
+    (:func:`plant_readings`, :func:`plant_gates`); a second launch must
+    give the same bits, and the counters must advance by one launch and
+    B scenarios."""
+    from quadruped_locomotion_tpu_torch.rollout import articulated as art
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
+
+    B = tau.shape[0]
+
+    def kernel():
+        return plant_outputs(art.step(model, sim, tau, cl.CONTROL_DT,
+                                      support=support, ground_height=gz,
+                                      friction_mu=mu))
+
+    before = counters[PLANT], counters[PLANT_INSTANCES]
+    got = kernel()
+    counted = (counters[PLANT] - before[0],
+               counters[PLANT_INSTANCES] - before[1])
+    again = kernel()
+    res = plant_readings(got, sim, plant_plain64(model, sim, tau, support,
+                                                 gz, mu),
+                         plant_near_decisions(model, sim, tau, support, gz,
+                                              mu))
+    res.update(label=label, friction_mu=mu, launches=2,
+               bit_for_bit=all(torch.equal(got[k], again[k])
+                               for k in PLANT_OUT))
+    log(f"plant kernel vs float64 plain step, {label} B={B}: "
+        + json.dumps(res))
+    if counted != (1, B):
+        raise AssertionError(f"one plant step of {B} scenarios counted as "
+                             f"{counted} ({PLANT}, {PLANT_INSTANCES})")
+    if not res["bit_for_bit"]:
+        raise AssertionError(f"two plant kernel launches differ: {label}")
+    plant_gates(res, f"{label} B={B}")
+    return res
+
+
+def check_plant_kernel(device) -> dict:
+    """Phase 7's first part: the plant kernel's build (no spills, >= 4
+    blocks an SM), the kernel against the float64 plain step on every
+    seeded state kind at B = 4096 and 32768 and on the last plant step of
+    one planner tick of 32768 config-5 scenarios from the standing start
+    (the sweep cell's shape; its 4 plant steps counted), and its time
+    there and on the seeded ``rest`` and ``slip`` states, beside the
+    plain float32 step's."""
+    from quadruped_locomotion_tpu_torch import sweep
+    from quadruped_locomotion_tpu_torch.headline import cuda_ms
+    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.rollout import articulated as art
+    from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
+
+    build = art.build_kernel()
+    report = fk.ptxas_report(build.log)
+    geometry = dict(threads_per_block=build.threads_per_block,
+                    scenarios_per_block=build.instances_per_block,
+                    resident_blocks_per_sm=build.resident_blocks_per_sm)
+    log(f"built {build.path.name} in {build.seconds:.1f} s; "
+        f"articulated_step ptxas report: {json.dumps(report)}; "
+        + json.dumps(geometry))
+    if report["spill_store_bytes"] or report["spill_load_bytes"]:
+        raise AssertionError(f"articulated_step spills registers: {report}")
+    if build.resident_blocks_per_sm < 4:
+        raise AssertionError("articulated_step holds fewer than 4 blocks an "
+                             f"SM: {build.resident_blocks_per_sm}")
+
+    cases = [hold_plant(*plant_states(kind, B, device, seed=B), label=kind)
+             for B in PLANT_BATCHES for kind in PLANT_KINDS]
+
+    B = PLANT_BATCHES[-1]
+    sc = sweep.build_scenarios(B, SEED, device)
+    with PlantTap(cl) as tap:
+        before = counters[PLANT], counters[PLANT_INSTANCES]
+        sweep.run(sc, 1)
+        counted = (counters[PLANT] - before[0],
+                   counters[PLANT_INSTANCES] - before[1])
+    want = (cl.CONTROL_SUBSTEPS, cl.CONTROL_SUBSTEPS * B)
+    if counted != want:
+        raise AssertionError(f"a sweep tick of {B} scenarios counted "
+                             f"{counted} plant launches and scenarios, "
+                             f"want {want}")
+    cases.append(hold_plant(*tap.last, label="sweep tick 0, substep 3"))
+
+    def ms(inputs, fn, reps, warmup=2):
+        model, sim, tau, support, gz, mu = inputs
+        return cuda_ms(lambda: fn(model, sim, tau, cl.CONTROL_DT,
+                                  support=support, ground_height=gz,
+                                  friction_mu=mu), reps, warmup)
+
+    # the sweep's states in turns with the seeded rest states at B = 4096,
+    # then the friction branch, and the plain float32 step on the sweep's
+    rest = plant_states("rest", PLANT_BATCHES[0], device)
+    runs = [ms(tap.last, art.step, 50), ms(rest, art.step, 50),
+            ms(rest, art.step, 50), ms(tap.last, art.step, 50)]
+    times = dict(
+        ms_kernel=(runs[0] + runs[3]) / 2, ms_4096=(runs[1] + runs[2]) / 2,
+        ms_slip={b: ms(plant_states("slip", b, device), art.step, 50)
+                 for b in PLANT_BATCHES},
+        ms_plain=ms(tap.last, art.step_plain, 3, warmup=1))
+    flops, nbytes = art.step_flops() * B, art.step_bytes(B)
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    res = dict(ptxas=report, geometry=geometry, cases=cases, **times,
+               flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               state_rel_max=max(c["state_rel"] for c in cases),
+               max_abs_err=max(c["max_abs_err"] for c in cases))
+    log(f"articulated_step: B={B} (the sweep's states) {times['ms_kernel']:.4f}"
+        f" ms, B={PLANT_BATCHES[0]} (rest) {times['ms_4096']:.4f} ms; with "
+        "friction (slip) " + ", ".join(f"B={b} {v:.4f} ms" for b, v in
+                                       times["ms_slip"].items())
+        + f"; plain float32 step {times['ms_plain']:.2f} ms at B={B}; bound "
+        f"{res['bound_ms'] * 1e3:.2f} us ({flops:.3e} flop / 67 TFLOP/s = "
+        f"{t_ops * 1e3:.2f} us, {nbytes} B / 3.35 TB/s = "
+        f"{t_bytes * 1e3:.2f} us); runs B={B}, {PLANT_BATCHES[0]}, "
+        f"{PLANT_BATCHES[0]}, {B}: " + ", ".join(f"{r:.4f}" for r in runs)
+        + f" ms; largest state-group error {res['state_rel_max']:.3e}")
+    return res
+
+
 
 
 def check_articulated(batch: int, ticks: int, device,
@@ -798,17 +1168,20 @@ def check_articulated(batch: int, ticks: int, device,
     from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     args = setup_rollout(batch, device)
-    with WorstQp(fk) as tap:
+    with WorstQp(fk) as tap, PlantTap(cl) as plant:
         counters[KERNEL] = 0
+        plant_launches = counters[PLANT]
         tel, wall = run_rollout(args, ticks, device, plant="articulated")
         launches = counters[KERNEL]
+        plant_launches = counters[PLANT] - plant_launches
     for k, v in tel.items():
         if v.is_floating_point() and not torch.isfinite(v).all():
             raise AssertionError(f"articulated telemetry {k} is not finite")
     upright = (tel["base_position"][-1, :, 2] > 0.25).float().mean().item()
     kkt = tel["qp_kkt"].cpu().numpy()
     sim_s = ticks * cl.PLANNER_DT
-    res = dict(launches=launches, ticks=ticks, wall_s=wall, upright=upright,
+    res = dict(launches=launches, plant_launches=plant_launches, ticks=ticks,
+               wall_s=wall, upright=upright,
                height_min=tel["base_position"][..., 2].min().item(),
                kkt_p99=float(np.percentile(kkt, 99)), kkt_max=float(kkt.max()),
                s_per_tick=wall / ticks,
@@ -817,6 +1190,11 @@ def check_articulated(batch: int, ticks: int, device,
     if launches != ticks * cl.CONTROL_SUBSTEPS:
         raise AssertionError(f"kernel launched {launches} times, want "
                              f"{ticks * cl.CONTROL_SUBSTEPS}")
+    if plant_launches != ticks * cl.CONTROL_SUBSTEPS:
+        raise AssertionError(f"plant kernel launched {plant_launches} times, "
+                             f"want {ticks * cl.CONTROL_SUBSTEPS}")
+    res["plant_held"] = hold_plant(*plant.last, label="articulated rollout, "
+                                   "last plant step")
     if upright < 0.99:
         raise AssertionError(f"articulated upright fraction {upright} < 0.99")
     worst = check_worst_qp(tap.worst, cl.CONTROL_SUBSTEPS, dump, "art_worst")
@@ -896,16 +1274,19 @@ def check_sweep(batch: int, ticks: int, device, dump: dict | None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with WorstQp(fk) as tap, FootholdTap(hfm) as feet:
         counters[KERNEL] = 0
+        plant_launches = counters[PLANT]
         res = sweep.measure(batch, ticks, device=device)
         launches = counters[KERNEL]
+        plant_launches = counters[PLANT] - plant_launches
     want = (ticks + 1) * cl.CONTROL_SUBSTEPS  # the warm-up tick included
-    res.update(launches=launches,
+    res.update(launches=launches, plant_launches=plant_launches,
                moved_share=feet.moved.float().mean().item(),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"sweep B={batch} ticks={ticks}: " + json.dumps(res))
-    if launches != want:
-        raise AssertionError(f"sweep launched the kernel {launches} times, "
-                             f"want {want}")
+    if launches != want or plant_launches != want:
+        raise AssertionError(f"sweep launched the QP kernel {launches} times "
+                             f"and the plant kernel {plant_launches}, want "
+                             f"{want} each")
     if not res["finite"]:
         raise AssertionError("sweep telemetry is not finite")
     if res["upright_frac"] < 0.9:
@@ -956,6 +1337,7 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
                                      device=device).expand(batch, 3),
         yaw_rate=torch.zeros(batch, device=device))
     counters[KERNEL] = 0
+    plant_launches = counters[PLANT]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, tel = el.rollout_estimated(
@@ -964,6 +1346,7 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
         els, cmd, ticks, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    plant_launches = counters[PLANT] - plant_launches
     z = tel["base_position"][..., 2]
     vel_err, pos_err = tel["vel_err"], tel["pos_err"]
     late = vel_err[min(50, ticks - 1):]
@@ -977,7 +1360,8 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
                pos_err_final_max=pos_err[-1].max().item(),
                pos_err_final_median=pos_err[-1].median().item(),
                kkt_p99=float(np.percentile(tel["qp_kkt"].cpu().numpy(), 99)),
-               kernel_launches=counters[KERNEL])
+               kernel_launches=counters[KERNEL],
+               plant_launches=plant_launches)
     log(f"estimated loop B={batch} ticks={ticks}: " + json.dumps(res))
     if not res["finite"]:
         raise AssertionError("estimated-loop telemetry is not finite")
@@ -989,6 +1373,10 @@ def check_estimated(batch: int, ticks: int, device) -> dict:
         raise AssertionError(f"estimated position error: {res}")
     if counters[KERNEL]:
         raise AssertionError("the estimated loop reached the kernel")
+    if plant_launches != ticks * cl.CONTROL_SUBSTEPS:
+        raise AssertionError(f"the estimated loop launched the plant kernel "
+                             f"{plant_launches} times, want "
+                             f"{ticks * cl.CONTROL_SUBSTEPS}")
     return res
 
 
@@ -1983,13 +2371,16 @@ def main() -> int:
             "fd_qp_ipm holds fewer than 4 blocks (32 instances) per SM: "
             f"{build.resident_blocks_per_sm}")
 
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
+
     dump = None if args.dump is None else {}
-    phase_s = {}
+    phase_s, phase_plant = {}, {}
 
     def timed(name, fn, *a):
-        t0 = time.perf_counter()
+        t0, launched = time.perf_counter(), counters[PLANT]
         out = fn(*a)
         phase_s[name] = time.perf_counter() - t0
+        phase_plant[name] = counters[PLANT] - launched
         return out
 
     k = timed("kernel_check", check_kernel, BATCH, device, dump)
@@ -1997,6 +2388,7 @@ def main() -> int:
               k["ms_kernel"], dump)
     h = timed("headline", check_headline, BATCH, device, dump)
     lf = timed("load_factors", check_load_factors, BATCH, device)
+    pk = timed("plant_kernel", check_plant_kernel, device)
     a = timed("articulated", check_articulated, BATCH, args.art_ticks, device,
               dump)
     lat = timed("latency", check_latency, args.latency_chunks, device)
@@ -2019,8 +2411,15 @@ def main() -> int:
                 + sw["launches"] + est["kernel_launches"]
                 + pre["kernel_launches"] + scr["kernel_launches"]
                 + man["kernel_launches"] + op["launches"] + par["launches"])
+    # the plant's launches in this process but for the comparisons with the
+    # plain step (the plant_kernel phase, and the launches with which phase
+    # 7 holds its rollout's last plant step)
+    plant_launches = (sum(n for k, n in phase_plant.items()
+                          if k != "plant_kernel")
+                      - a["plant_held"]["launches"])
     log("phase wall seconds: " + json.dumps(phase_s)
         + f"; whole script {time.perf_counter() - t_start:.1f} s")
+    log("plant kernel launches by phase: " + json.dumps(phase_plant))
     record = {"kernels": [{
         "name": "fd_qp_ipm",
         "route": "cuda",
@@ -2045,6 +2444,18 @@ def main() -> int:
         "plain_ms": h["ms_plain"],
         "bound_ms": h["bound_ms"],
         "bound_by": h["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "articulated_step",
+        "route": "cuda",
+        "source": "quadruped_locomotion_tpu_torch/csrc/articulated_step.cu",
+        "replaces": "quadruped_locomotion_tpu/rollout/articulated.py:367",
+        "launches": plant_launches,
+        "max_abs_err": max(pk["max_abs_err"], a["plant_held"]["max_abs_err"]),
+        "ms": pk["ms_kernel"],
+        "plain_ms": pk["ms_plain"],
+        "bound_ms": pk["bound_ms"],
+        "bound_by": pk["bound_by"],
         "library_ms": None,
     }]}
     log(card)

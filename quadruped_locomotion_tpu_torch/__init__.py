@@ -3,7 +3,8 @@
 It covers the batched closed-loop rollout (flat ground or per-scenario
 heightfields, shared or per-scenario trot/pace gait parameters; the
 articulated, massless and controller-only plants) with the hand-written
-CUDA kernel of the force-distribution QP it runs every control substep,
+CUDA kernels of the force-distribution QP and of the articulated plant's
+step that it runs every control substep,
 the QP headline and load-factor solves, the config-5 scenario sweep
 (``sweep.py``), the EKF-estimated closed loop, and scripted motion: YAML
 motion scripts compiled to step schedules (``api/``), the BaseAuto pose

@@ -18,18 +18,14 @@ JAX reference and which the GPU smoke run holds the kernel against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
-import time
-from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
 from ..utils import logging as qlog
+from ..utils.cuda_build import (  # noqa: F401  (kept importable from here)
+    BUILD_DIR, NVCC_FLAGS, KernelBuild, _nvcc, load_kernel, ptxas_report,
+)
 
 N = 12  # primal variables (3 force components × 4 legs)
 MI = 20  # inequality rows (min normal force + 4-edge pyramid × 4 legs)
@@ -38,107 +34,22 @@ _DELTA = 1e-6  # Tikhonov regularization
 _S_FLOOR = 1e-9
 _TOL = 1e-6
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fd_qp_ipm.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-@dataclass
-class KernelBuild:
-    path: Path  # the shared library
-    seconds: float  # nvcc wall time of this process's build, 0.0 if reused
-    log: str  # nvcc / ptxas output (-Xptxas -v: registers, spills)
-    # launch geometry, read from the library: a half-warp (16 lanes) solves
-    # one instance, so a block of threads_per_block holds instances_per_block
-    threads_per_block: int
-    instances_per_block: int
-    # cudaOccupancyMaxActiveBlocksPerMultiprocessor of the kernel
-    resident_blocks_per_sm: int
-
-
-def ptxas_report(log: str) -> dict:
-    """Registers, shared memory, stack frame and spill bytes of the kernel
-    from ``-Xptxas -v`` output (largest over the functions listed). Raises
-    ValueError if the log holds no such report."""
-    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                        r"(\d+) bytes spill loads", log)
-    used = re.findall(r"Used (\d+) registers", log)
-    smem = re.findall(r"(\d+) bytes smem", log)
-    if not frames or not used:
-        raise ValueError("no ptxas register/spill report in the build log")
-    top = lambda rows, i: max(int(r[i]) for r in rows)  # noqa: E731
-    return dict(registers=max(map(int, used)),
-                smem_bytes=max(map(int, smem), default=0),
-                stack_bytes=top(frames, 0), spill_store_bytes=top(frames, 1),
-                spill_load_bytes=top(frames, 2))
-
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fd_qp_ipm.cu"
 
 _build: KernelBuild | None = None
 _lib = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    return path
 
 
 def build_kernel() -> KernelBuild:
     """Compile ``csrc/fd_qp_ipm.cu`` into ``build/`` (once per source hash)
     and load it (once per process). Raises if nvcc fails."""
     global _build, _lib
-    if _build is not None:
-        return _build
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"fd_qp_ipm-{digest[:16]}.so"
-    log_path = so.with_suffix(".log")
-    seconds = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        # both renames are atomic: a process that finds the library (ranks
-        # of one host may build at once) finds its whole log beside it
-        tmp_log = tmp.with_suffix(".log")
-        tmp_log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp_log, log_path)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.fd_qp_ipm.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.fd_qp_ipm.restype = ctypes.c_int
-    lib.fd_qp_ipm_error_string.argtypes = [ctypes.c_int]
-    lib.fd_qp_ipm_error_string.restype = ctypes.c_char_p
-    resident = lib.fd_qp_ipm_resident_blocks_per_sm()
-    if resident <= 0:
-        raise RuntimeError("fd_qp_ipm occupancy query failed: "
-                           + lib.fd_qp_ipm_error_string(-resident).decode())
-    _lib = lib
-    _build = KernelBuild(
-        path=so, seconds=seconds,
-        log=log_path.read_text() if log_path.exists() else "",
-        threads_per_block=lib.fd_qp_ipm_threads_per_block(),
-        instances_per_block=lib.fd_qp_ipm_instances_per_block(),
-        resident_blocks_per_sm=resident,
-    )
+    if _build is None:
+        lib, build = load_kernel(SOURCE, "fd_qp_ipm")
+        lib.fd_qp_ipm.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.fd_qp_ipm.restype = ctypes.c_int
+        _lib, _build = lib, build
     return _build
 
 

@@ -28,11 +28,23 @@ total mass minus the explicit link masses and loses the lumped legs'
 parallel-axis inertia. Every state tensor carries one leading scenario
 axis B; ``SimState.feet_world`` holds the pinned feet's anchors.
 
-:func:`graphed_step` is :func:`step` replayed from a CUDA graph on the
-card (``utils/cuda_graphs.py``).
+:func:`step` is the entry point. On CUDA tensors it is one launch of the
+hand-written kernel ``csrc/articulated_step.cu`` (built with ``nvcc`` at
+first use, bound with ``ctypes``; float32 only, other dtypes raise): a
+warp per scenario, the same step with the Jacobians and bias
+accelerations in closed form from each leg's chain and the contact system
+solved through the Cholesky factor of M. On the CPU it is
+:func:`step_plain`, the step above in plain PyTorch on any device and
+dtype, which the tests hold against the JAX package and which the card's
+tests and ``chip_smoke.py`` run in float64, by name, to hold the kernel
+against.
 """
 
 from __future__ import annotations
+
+import ctypes
+import weakref
+from pathlib import Path
 
 import torch
 from torch.func import jacfwd, jvp, vmap
@@ -41,7 +53,8 @@ from ..model.kinematics import (
     forward_kinematics, leg_com_positions_hip, link_rotations_hip, mv,
 )
 from ..types import GRAVITY, BaseState, RobotModel, const
-from ..utils.cuda_graphs import Graphed
+from ..utils import logging as qlog
+from ..utils.cuda_build import KernelBuild, load_kernel
 from ..utils.rotations import (
     cross, matrix_from_quat, quat_exp, quat_mul, quat_normalize, skew,
 )
@@ -55,6 +68,8 @@ BAUMGARTE_TAU = 0.005
 CONTACT_COMPLIANCE = 1e-6
 # A pinned foot whose solved normal force is below this is released.
 RELEASE_FORCE = 0.0
+# A foot beyond this share of its leg's reach is not pinned.
+REACH_SHARE = 0.995
 SUBSTEPS = 2
 
 
@@ -221,7 +236,7 @@ def _substep(model: RobotModel, carry, tau, h, support_cmd, gz4, mu=None):
     hips_world = base.position[:, None, :] + model.hip_pos.to(dtype) @ \
         kin["base_rot"].mT
     extension = torch.linalg.norm(feet - hips_world, dim=-1)
-    mask = support_cmd & (pinned | touching) & (extension < 0.995 * reach)
+    mask = support_cmd & (pinned | touching) & (extension < REACH_SHARE * reach)
     # newly pinned feet anchor where they touched, snapped onto the surface
     anchors = torch.where((mask & ~pinned)[..., None], _on_surface(feet, gz4),
                           anchors)
@@ -283,7 +298,7 @@ def _substep(model: RobotModel, carry, tau, h, support_cmd, gz4, mu=None):
     return (base_new, q + h * qd_new, qd_new, mask2, anchors), lam
 
 
-def step(
+def step_plain(
     model: RobotModel,
     sim: SimState,
     tau: torch.Tensor,  # (B,4,3) commanded joint torques
@@ -293,11 +308,8 @@ def step(
     substeps: int = SUBSTEPS,
     friction_mu: float | None = None,
 ) -> SimState:
-    """One coupled-physics step of every scenario (a drop-in for the
-    massless ``simulator.step``). ``sim.feet_world`` carries the pinned
-    feet's anchors (swing feet are FK positions); ``sim.robot.support``
-    is the realised pin state. ``friction_mu`` bounds contact forces by
-    the Coulomb cone and lets feet slide; None is rigid stick."""
+    """:func:`step` in plain PyTorch on any device and dtype: the JAX
+    package's algorithm (autodiff through the chart, masked KKT solves)."""
     robot = sim.robot
     dtype = tau.dtype
     B = tau.shape[0]
@@ -319,33 +331,236 @@ def step(
     return SimState(robot=robot_new, feet_world=feet_world, time=sim.time + dt)
 
 
-def _step_of(model, dt, substeps, friction_mu, sim, tau, support, gz4):
-    return step(model, sim, tau, dt, support=support, ground_height=gz4,
-                substeps=substeps, friction_mu=friction_mu)
+# ---------------------------------------------------------------------------
+# The kernel: csrc/articulated_step.cu, built and bound as the QP's
+# (utils/cuda_build.py): nvcc into build/ once per source hash, ctypes, a C
+# entry that returns cudaGetLastError().
+# ---------------------------------------------------------------------------
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "articulated_step.cu"
+# RobotModel's fields in the order the kernel's Model struct reads them
+MODEL_FIELDS = ("hip_pos", "hip_rot", "d", "l1", "l2", "link_mass",
+                "link_com", "link_inertia", "base_mass", "leg_mass",
+                "base_inertia", "hip_offset", "com_in_base", "joint_damping")
+MODEL_FLOATS = 120
 
 
-_STEP = Graphed(_step_of)
+class PlantConsts(ctypes.Structure):
+    """The kernel's ``PlantConsts``, passed by value."""
+
+    _fields_ = [("h", ctypes.c_float), ("substeps", ctypes.c_int),
+                ("gravity", ctypes.c_float), ("contact_tol", ctypes.c_float),
+                ("kd", ctypes.c_float), ("kp", ctypes.c_float),
+                ("compliance", ctypes.c_float),
+                ("release_force", ctypes.c_float),
+                ("reach_share", ctypes.c_float), ("mu", ctypes.c_float)]
 
 
-def graphed_step(
+def plant_consts(dt: float, substeps: int,
+                 friction_mu: float | None) -> PlantConsts:
+    """The plant's constants above and one step's numbers, for the kernel."""
+    return PlantConsts(
+        h=dt / substeps, substeps=substeps, gravity=GRAVITY,
+        contact_tol=CONTACT_TOL, kd=2.0 / BAUMGARTE_TAU,
+        kp=1.0 / BAUMGARTE_TAU ** 2, compliance=CONTACT_COMPLIANCE,
+        release_force=RELEASE_FORCE, reach_share=REACH_SHARE,
+        mu=0.0 if friction_mu is None else friction_mu)
+
+
+_build: KernelBuild | None = None
+_lib = None
+
+
+def build_kernel() -> KernelBuild:
+    """Compile ``csrc/articulated_step.cu`` into ``build/`` (once per
+    source hash) and load it (once per process). Raises if nvcc fails."""
+    global _build, _lib
+    if _build is None:
+        lib, build = load_kernel(SOURCE, "articulated_step")
+        lib.articulated_step.argtypes = [ctypes.c_void_p] * 20 + [
+            ctypes.c_int, PlantConsts, ctypes.c_int, ctypes.c_void_p]
+        lib.articulated_step.restype = ctypes.c_int
+        _lib, _build = lib, build
+    return _build
+
+
+# (weak reference to the model last packed, its packing)
+_packed: tuple = (None, None)
+
+
+def pack_model(model: RobotModel) -> torch.Tensor:
+    """(120,) float32: the model's tensors in :data:`MODEL_FIELDS` order,
+    on the model's device; packed once and reused while the same model
+    object is stepped (a model is never written in place)."""
+    global _packed
+    ref, packed = _packed
+    if ref is None or ref() is not model:
+        packed = torch.cat([getattr(model, f).reshape(-1).to(torch.float32)
+                            for f in MODEL_FIELDS])
+        _packed = (weakref.ref(model), packed)
+    return packed
+
+
+def step_flops(substeps: int = SUBSTEPS, friction: bool = False) -> int:
+    """Floating-point operations of one scenario's step, counted from the
+    algorithm (a multiply-add is 2, a division, square root or reciprocal
+    square root 1; comparisons and selects are not counted). Per internal
+    substep: the 17 points' kinematics (each leg's chain, joint axes and
+    origins; each point's position); the Jacobian columns (the base's
+    angular columns of every point, a cross product each, and each joint's
+    column of the points it moves); the 13 bodies' world inertias
+    R I Rᵀ; M's lower entries, a body term (m jv_a·jv_b + jw_a·I jw_b, 31
+    flop) for each body that moves both coordinates; the bodies' forces
+    and torques and h's projections; the points' velocities and bias
+    accelerations; M's Cholesky factor; L⁻¹ of the 12 contact columns and
+    of τ − h; the Gram matrix; each contact solve (the 12×12 Cholesky
+    factor and two triangular solves: stick and re-solve, and the Coulomb
+    solve with friction, which also adds the sliding feet's forces); v̇;
+    the Baumgarte right-hand side; the integration. Then the closing FK of
+    the 4 feet. What the kernel's lanes compute beyond that (a Jacobian
+    column again for each entry of M that reads it) is not counted, so
+    the bound it feeds is the algorithm's, not the kernel's."""
+    nv, nc, pts = 18, 12, 17
+    kinematics = 4 * 273 + 16 * 42 + 48
+    columns = pts * 3 * 9 + 4 * (1 + 2 + 3 + 3) * 12
+    inertias = 13 * 84
+    pairs = (21 * 13  # two base coordinates: all 13 bodies
+             + 6 * 4 * (3 + 2 + 1)  # a base and a joint coordinate
+             + 4 * sum(3 - k for j in range(3) for k in range(j, 3)))
+    mass = pairs * 31
+    bias = 13 * 57 + (6 * 13 + 4 * (3 + 2 + 1)) * 12
+    motion = pts * 24 + 4 * (1 + 2 + 3 + 3) * 51 + 4 * (1 + 2 + 3) * 12
+    cholesky = nv ** 3 // 3 + nv
+    forward = (nc + 1) * nv * nv
+    gram = (nc * (nc + 1) // 2 + nc) * 2 * nv
+    solve = nc ** 3 // 3 + nc + 2 * nc * nc + nc
+    solves = (3 if friction else 2) * solve + (2 * nc * nc if friction else 0)
+    accel = 2 * nv * nc + nv * nv
+    rest = nc * 8 + 140
+    per_substep = (kinematics + columns + inertias + mass + bias + motion
+                   + cholesky + forward + gram + solves + accel + rest)
+    return substeps * per_substep + 4 * 100
+
+
+def step_bytes(batch: int) -> int:
+    """Bytes one step must move: the model once, each scenario's state,
+    torques, commanded support and ground heights read once and its next
+    state written once (float32; pin and support flags a byte each)."""
+    floats_in = 3 + 4 + 3 + 3 + 12 + 12 + 12 + 12 + 4
+    floats_out = 3 + 4 + 3 + 3 + 12 + 12 + 12
+    return 4 * MODEL_FLOATS + batch * (4 * (floats_in + floats_out) + 8 + 4)
+
+
+def kernel_inputs(model: RobotModel, sim: SimState, tau: torch.Tensor,
+                  support: torch.Tensor | None = None,
+                  ground_height=0.0) -> dict:
+    """The kernel's inputs, in its argument order: the packed model, the
+    state's tensors, the torques, the commanded support and the ground
+    height under each foot, made contiguous (a no-op where they are)."""
+    robot, B = sim.robot, tau.shape[0]
+    if support is None:
+        support = robot.support
+    if isinstance(ground_height, torch.Tensor):
+        gz = ground_height.to(tau.dtype).expand(B, 4)
+    else:  # a fill, no copy from the host
+        gz = torch.full((B, 4), float(ground_height), dtype=tau.dtype,
+                        device=tau.device)
+    base = robot.base
+    ins = {"model": pack_model(model), "position": base.position,
+           "quaternion": base.quaternion, "linear_velocity":
+           base.linear_velocity, "angular_velocity": base.angular_velocity,
+           "q": robot.q, "qd": robot.qd, "pinned": robot.support,
+           "anchors": sim.feet_world, "tau": tau, "support": support,
+           "ground_height": gz}
+    return {k: t.contiguous() for k, t in ins.items()}
+
+
+_SHAPES = {"model": (MODEL_FLOATS,), "position": (3,), "quaternion": (4,),
+           "linear_velocity": (3,), "angular_velocity": (3,), "q": (4, 3),
+           "qd": (4, 3), "pinned": (4,), "anchors": (4, 3), "tau": (4, 3),
+           "support": (4,), "ground_height": (4,)}
+_FLAGS = ("pinned", "support")
+
+
+def check_kernel_inputs(ins: dict) -> int:
+    """Raises ValueError unless every input of :func:`kernel_inputs` has
+    its shape (B leading, the model none), its dtype (float32, flags
+    bool), ``tau``'s device and a contiguous layout. Returns B."""
+    B = ins["tau"].shape[0]
+    for name, tail in _SHAPES.items():
+        t = ins[name]
+        shape = tail if name == "model" else (B, *tail)
+        dtype = torch.bool if name in _FLAGS else torch.float32
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != ins["tau"].device or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous {dtype} tensor of shape {shape} "
+                f"on {ins['tau'].device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}{'' if t.is_contiguous() else ', not contiguous'}")
+    return B
+
+
+def launch_step(model: RobotModel, sim: SimState, tau: torch.Tensor,
+                dt: float, support: torch.Tensor | None = None,
+                ground_height=0.0, substeps: int = SUBSTEPS,
+                friction_mu: float | None = None) -> SimState:
+    """:func:`step` as one launch of the kernel on CUDA float32 tensors, on
+    the current stream. Raises on anything else, and if the kernel cannot
+    be built or launched. Counts the launch in
+    ``counters["plant.kernel_launches"]`` and its B scenarios in
+    ``counters["plant.kernel_instances"]``."""
+    ins = kernel_inputs(model, sim, tau, support, ground_height)
+    B = check_kernel_inputs(ins)
+    dev = tau.device
+    if dev.type != "cuda":
+        raise ValueError(f"the plant kernel runs on CUDA tensors, not {dev}")
+    build_kernel()
+    out = {k: torch.empty((B, *_SHAPES[k]), dtype=ins[k].dtype, device=dev)
+           for k in ("position", "quaternion", "linear_velocity",
+                     "angular_velocity", "q", "qd", "pinned", "anchors")}
+    rc = _lib.articulated_step(
+        *(t.data_ptr() for t in ins.values()),
+        *(t.data_ptr() for t in out.values()), B,
+        plant_consts(dt, substeps, friction_mu), friction_mu is not None,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("articulated_step launch failed: "
+                           + _lib.articulated_step_error_string(rc).decode())
+    qlog.counters["plant.kernel_launches"] += 1
+    qlog.counters["plant.kernel_instances"] += B
+    base = BaseState(position=out["position"], quaternion=out["quaternion"],
+                     linear_velocity=out["linear_velocity"],
+                     angular_velocity=out["angular_velocity"])
+    robot = sim.robot.replace(base=base, q=out["q"], qd=out["qd"], tau=tau,
+                              support=out["pinned"])
+    return SimState(robot=robot, feet_world=out["anchors"],
+                    time=sim.time + dt)
+
+
+def step(
     model: RobotModel,
     sim: SimState,
-    tau: torch.Tensor,
+    tau: torch.Tensor,  # (B,4,3) commanded joint torques
     dt: float,
-    support: torch.Tensor | None = None,
+    support: torch.Tensor | None = None,  # (B,4) commanded contact state
     ground_height=0.0,
     substeps: int = SUBSTEPS,
     friction_mu: float | None = None,
 ) -> SimState:
-    """:func:`step` replayed on the card from a CUDA graph captured at the
-    first call of each model, ``dt``, ``substeps``, ``friction_mu`` and
-    layout of inputs (``utils/cuda_graphs.Graphed``; the KKT systems' LU
-    from cuSOLVER and cuBLAS at every batch); elsewhere :func:`step`."""
-    if support is None:
-        support = sim.robot.support
-    gz4 = torch.as_tensor(ground_height, dtype=tau.dtype,
-                          device=tau.device).expand(tau.shape[0], 4)
-    return _STEP((model, dt, substeps, friction_mu), sim, tau, support, gz4)
+    """One coupled-physics step of every scenario (a drop-in for the
+    massless ``simulator.step``). ``sim.feet_world`` carries the pinned
+    feet's anchors (swing feet are FK positions); ``sim.robot.support``
+    is the realised pin state. ``friction_mu`` bounds contact forces by
+    the Coulomb cone and lets feet slide; None is rigid stick.
+
+    CUDA tensors go to the kernel (:func:`launch_step`, one launch; it
+    raises on anything but float32), CPU tensors to :func:`step_plain`,
+    which callers also name for the plain step on the card."""
+    if tau.is_cuda:
+        return launch_step(model, sim, tau, dt, support, ground_height,
+                           substeps, friction_mu)
+    return step_plain(model, sim, tau, dt, support, ground_height, substeps,
+                      friction_mu)
 
 
 def mass_matrix(model: RobotModel, base: BaseState, q: torch.Tensor) -> torch.Tensor:

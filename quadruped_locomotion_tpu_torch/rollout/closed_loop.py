@@ -59,10 +59,10 @@ def _no_plant_step(model, sim, tau, dt, **kw):
 
 
 # "articulated" (the default): the fully coupled 18-DoF floating-base
-# plant (rollout/articulated.py), replayed from a CUDA graph on the card.
-# "massless": trunk + swing-leg plant (rollout/simulator.py). "none":
-# controller only.
-PLANTS = {"articulated": artlib.graphed_step, "massless": simlib.step,
+# plant (rollout/articulated.py), one launch of its CUDA kernel a step on
+# the card and the plain PyTorch step elsewhere. "massless": trunk +
+# swing-leg plant (rollout/simulator.py). "none": controller only.
+PLANTS = {"articulated": artlib.step, "massless": simlib.step,
           "none": _no_plant_step}
 
 
@@ -239,10 +239,10 @@ def planner_tick(
     ``telemetry_fn`` call, where one is given) and ``loop.plant`` carry
     ``substep`` 0-3.
 
-    On the card the contact, prepare and finish stages and the
-    articulated plant are replayed from CUDA graphs (:data:`STAGES`,
-    ``articulated.graphed_step``), captured at their first call; the gait
-    engine, the QP and the ``telemetry_fn`` run eagerly."""
+    On the card the contact, prepare and finish stages are replayed from
+    CUDA graphs (:data:`STAGES`), captured at their first call; the
+    articulated plant is one launch of its kernel (``articulated.step``);
+    the gait engine, the QP and the ``telemetry_fn`` run eagerly."""
     plant_step = _plant(plant)
     contact, prepare, finish = (STAGES[k]
                                 for k in ("contact", "prepare", "finish"))

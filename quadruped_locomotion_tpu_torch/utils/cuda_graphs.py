@@ -1,9 +1,8 @@
 """A pure function of tensors replayed from a CUDA graph on the card (the
-closed loop's stages, ``rollout/closed_loop.py``, and the articulated
-plant, ``rollout/articulated.py``): each stage's hundreds to thousands of
-small launches, many of them made through ``torch.func`` transforms, cost
-the host more time than the card takes to run them, and a replay is one
-launch."""
+closed loop's stages, ``rollout/closed_loop.py``): each stage's hundreds
+to thousands of small launches, many of them made through ``torch.func``
+transforms, cost the host more time than the card takes to run them, and
+a replay is one launch."""
 
 from __future__ import annotations
 
@@ -29,10 +28,7 @@ def _key(obj):
 class _Capture:
     """``fn(*bound, *args)`` over static copies of ``args``, captured after
     one eager run on a side stream (it makes the cached constants and the
-    library handles and workspaces, which a capture may not create). Both
-    run batched LU through cuSOLVER and cuBLAS: MAGMA, which PyTorch picks
-    for batches of 64 systems and more, waits on the host and cannot be
-    captured."""
+    library handles and workspaces, which a capture may not create)."""
 
     def __init__(self, fn, bound, args):
         self.bound = bound  # the graph reads their tensors where they lie
@@ -41,18 +37,13 @@ class _Capture:
             args, lambda t: self.inputs.append(t.clone()) or self.inputs[-1])
         device = self.inputs[0].device
         side = torch.cuda.Stream(device)
-        linalg = torch.backends.cuda.preferred_linalg_library()
-        torch.backends.cuda.preferred_linalg_library("cusolver")
-        try:
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                fn(*bound, *self.args)
-            torch.cuda.current_stream(device).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.out = fn(*bound, *self.args)
-        finally:
-            torch.backends.cuda.preferred_linalg_library(linalg)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn(*bound, *self.args)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = fn(*bound, *self.args)
         self.replays = 0
 
     def __call__(self, leaves):
@@ -64,9 +55,8 @@ class _Capture:
 
 
 class Graphed:
-    """``fn(*bound, *args)``, the same kernels in the same order (batched
-    LU from cuSOLVER and cuBLAS at every batch), replayed on the card from
-    a CUDA graph captured at the first call of each ``bound`` (objects the
+    """``fn(*bound, *args)``, the same kernels in the same order, replayed
+    on the card from a CUDA graph captured at the first call of each ``bound`` (objects the
     graph reads in place, such as the model, or plain numbers) and layout
     of ``args`` (trees of tensors, copied in at every call); the last
     :data:`KEPT` graphs are kept. Off the card, inside a capture or with

@@ -26,7 +26,9 @@ program's spans and counters, and profiler sessions (≙
   it) and ``qp.instance_iterations`` (the interior-point iterations
   ``ops.fd_qp_kernel.solve_fd_qp`` asked for, B × ``iters`` a call, on
   the card and off it: what a caller's iteration count above the
-  default 15 costs).
+  default 15 costs); ``plant.kernel_launches`` (launches of the
+  articulated plant's kernel) and ``plant.kernel_instances`` (the
+  scenarios those launches stepped).
 * :func:`profiler_device_ops` and :func:`attribute` — the device
   operations of a profiled window, each joined to the CUDA runtime call
   that launched it and put down to the innermost span open at that
