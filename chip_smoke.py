@@ -254,9 +254,9 @@ def card_line() -> str:
 
 
 def versions() -> str:
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
+    from quadruped_locomotion_tpu_torch.utils.cuda_build import _nvcc
 
-    nvcc = subprocess.run([fd_qp_kernel._nvcc(), "--version"],
+    nvcc = subprocess.run([_nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     release = [ln for ln in nvcc.stdout.splitlines() if "release" in ln]
     return (f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -455,7 +455,7 @@ def check_kernel(batch: int, device, dump: dict | None = None) -> dict:
     # timing through solve_fd_qp at B and at B = 1, in turns, and the plain
     # version (CUDA events, warm)
     B = batch
-    geometry = fk.launch_geometry(B)
+    geometry = fk.KERNEL.geometry(B)
     full = lambda: cuda_ms(lambda: fk.solve_fd_qp(G, g, D, d), 50)  # noqa: E731
     single = lambda: cuda_ms(lambda: fk.solve_fd_qp(*one), 50)  # noqa: E731
     runs = [full(), single(), single(), full()]
@@ -473,9 +473,9 @@ def check_kernel(batch: int, device, dump: dict | None = None) -> dict:
         f"{geometry['threads_per_block']} threads, "
         f"{geometry['instances_per_block']} instances per block (a half-warp "
         f"each), {geometry['resident_blocks_per_sm']} blocks resident per SM; "
-        f"half-warps carrying an instance {geometry['half_warp_share']:g}; "
+        f"half-warps carrying an instance {geometry['slot_share']:g}; "
         f"at B=1: 1 block, half-warp share "
-        f"{fk.launch_geometry(1)['half_warp_share']:g}; "
+        f"{fk.KERNEL.geometry(1)['slot_share']:g}; "
         f"qp.kernel_instances {batch} in one launch")
     log(f"fd_qp_ipm through solve_fd_qp: B={B} {ms_kernel:.4f} ms, B=1 "
         f"{ms_b1:.4f} ms; plain {ms_plain:.3f} ms at B={B}; bound "
@@ -1087,13 +1087,13 @@ def check_plant_kernel(device) -> dict:
     plain float32 step's."""
     from quadruped_locomotion_tpu_torch import sweep
     from quadruped_locomotion_tpu_torch.headline import cuda_ms
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.rollout import articulated as art
     from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+    from quadruped_locomotion_tpu_torch.utils.cuda_build import ptxas_report
     from quadruped_locomotion_tpu_torch.utils.logging import counters
 
-    build = art.build_kernel()
-    report = fk.ptxas_report(build.log)
+    build = art.KERNEL.build()
+    report = ptxas_report(build.log)
     geometry = dict(threads_per_block=build.threads_per_block,
                     scenarios_per_block=build.instances_per_block,
                     resident_blocks_per_sm=build.resident_blocks_per_sm)
@@ -2347,6 +2347,7 @@ def main() -> int:
         return 1
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
     from quadruped_locomotion_tpu_torch.types import full_f32_matmuls
+    from quadruped_locomotion_tpu_torch.utils.cuda_build import ptxas_report
 
     t_start = time.perf_counter()
     full_f32_matmuls()
@@ -2355,12 +2356,12 @@ def main() -> int:
     log(f"card: {card}")
     log(versions())
 
-    build = fk.build_kernel()
+    build = fk.KERNEL.build()
     ptxas = [ln.strip() for ln in build.log.splitlines()
              if "registers" in ln or "spill" in ln]
     log(f"built {build.path.name} in {build.seconds:.1f} s; ptxas: "
         + " | ".join(ptxas))
-    report = fk.ptxas_report(build.log)
+    report = ptxas_report(build.log)
     log("fd_qp_ipm ptxas report: " + json.dumps(report))
     if report["spill_store_bytes"] or report["spill_load_bytes"]:
         raise AssertionError(f"fd_qp_ipm spills registers: {report}")

@@ -238,7 +238,7 @@ def roofline_measure(batch: int, iters: int = 15, device=None) -> dict:
     solves_per_s = batch * 1e3 / ms
     return {"flops_per_solve": flops, "solves_per_s": solves_per_s,
             "ms": ms, "achieved_flop_s": flops * solves_per_s,
-            "geometry": fk.launch_geometry(batch)}
+            "geometry": fk.KERNEL.geometry(batch)}
 
 
 def roofline_record(res: dict) -> dict:

@@ -95,9 +95,33 @@ def _kernel_solution(x, s, z, kkt, iters) -> QpSolution:
     )
 
 
-def _require_cuda(backend: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
+# backend -> (module, its weighted least-squares solve, its formed solve);
+# the names are looked up at each call
+_QP_BACKENDS = {
+    "auto": (fd_qp_kernel, "solve_weighted_ls_fd_qp", "solve_fd_qp"),
+    "kernel": (fd_qp_kernel, "solve_weighted_ls_fd_qp", "solve_fd_qp"),
+    "plain": (fd_qp_kernel, "solve_weighted_ls_fd_qp_plain",
+              "solve_fd_qp_plain"),
+    "generic": (qp, "solve_weighted_ls_qp", "solve_qp"),
+}
+
+
+def _qp_solve(backend: str, formed: bool, t: torch.Tensor):
+    """The solve that ``backend`` names (:func:`solve_fd_qp_batched`), of
+    the formed quadratic (G, g, D, d) or else of the weighted
+    least-squares form (A, S, b, W, D, d), taking ``iters=`` and returning
+    a :class:`QpSolution`. Raises ValueError on an unknown name, and for
+    "kernel" unless ``t`` is a CUDA tensor."""
+    if backend not in _QP_BACKENDS:
+        raise ValueError(f"unknown QP backend {backend!r}")
+    if backend == "kernel" and t.device.type != "cuda":
         raise ValueError(f"backend={backend!r} needs CUDA tensors, got {t.device}")
+    module, ls, form = _QP_BACKENDS[backend]
+    solve = getattr(module, form if formed else ls)
+    if module is qp:
+        return solve
+    return lambda *args, iters: _kernel_solution(*solve(*args, iters=iters),
+                                                 iters)
 
 
 def solve_fd_qp_batched(
@@ -132,30 +156,15 @@ def solve_fd_qp_batched(
     The whole call is the span ``qp.entry``.
     """
     with qlog.span("qp.entry"):
-        if backend in ("auto", "kernel", "plain"):
-            if backend == "kernel":
-                _require_cuda(backend, A)
-            solve = (fd_qp_kernel.solve_weighted_ls_fd_qp_plain
-                     if backend == "plain"
-                     else fd_qp_kernel.solve_weighted_ls_fd_qp)
-
-            def dispatch(A, b, D, d):
-                return _kernel_solution(
-                    *solve(A, S, b, W, D, d, iters=iters), iters)
-        elif backend == "generic":
-            def dispatch(A, b, D, d):
-                return qp.solve_weighted_ls_qp(A, S, b, W, D, d, iters=iters)
-        else:
-            raise ValueError(f"unknown QP backend {backend!r}")
-
-        sol = dispatch(A, b, D, d)
+        solve = _qp_solve(backend, False, A)
+        sol = solve(A, S, b, W, D, d, iters=iters)
         if load_factors is None:
             return sol
         if support is None:
             raise ValueError("load_factors requires the support mask")
         A2, b2, D2, d2, pinned, x_pin = eliminate_pinned(
             A, b, D, d, sol.x, load_factors, support)
-        sol2 = dispatch(A2, b2, D2, d2)
+        sol2 = solve(A2, S, b2, W, D2, d2, iters=iters)
         return sol2._replace(
             x=combine_pinned(sol2.x, x_pin, pinned, support))
 
@@ -199,25 +208,12 @@ def solve_formed_qp_batched(
     """ONE solver dispatch for a whole batch of force-distribution QPs on
     an already-formed quadratic (see ``LocomotionContext.G/g``).
 
-    ``backend``: "auto" launches the CUDA kernel for CUDA tensors of any
-    batch size and runs the plain PyTorch version for CPU tensors;
-    "kernel" requires CUDA tensors and raises otherwise; "plain" runs the
-    plain version on any device (for tests and comparisons); "generic"
-    runs the generic batched IPM ``ops.qp.solve_qp``.
+    ``backend`` as in :func:`solve_fd_qp_batched` ("generic" is
+    ``ops.qp.solve_qp``).
     """
-    if backend == "generic":
-        return qp.solve_qp(G, g, D, d, iters=iters)
-    args = (G.contiguous(), g.contiguous(), D.contiguous(), d.contiguous())
-    if backend == "auto":
-        out = fd_qp_kernel.solve_fd_qp(*args, iters=iters)
-    elif backend == "kernel":
-        _require_cuda(backend, G)
-        out = fd_qp_kernel.solve_fd_qp(*args, iters=iters)
-    elif backend == "plain":
-        out = fd_qp_kernel.solve_fd_qp_plain(*args, iters=iters)
-    else:
-        raise ValueError(f"unknown QP backend {backend!r}")
-    return _kernel_solution(*out, iters)
+    return _qp_solve(backend, True, G)(
+        G.contiguous(), g.contiguous(), D.contiguous(), d.contiguous(),
+        iters=iters)
 
 
 def distribute(

@@ -37,7 +37,7 @@ from .types import (
     BaseTarget, CfdParams, RobotModel, VmcGains, full_f32_matmuls,
     resolve_device,
 )
-from .utils import logging as qlog
+from .utils.cuda_graphs import Capture
 
 CHAIN = 10  # dependent solves per graph replay
 CROSS_CHECK = 512  # instances held against the generic QP
@@ -199,34 +199,22 @@ def generic_gap(A, b, S, W, D, d, x, iters: int = 15,
             "generic_instances": int(gap.size)}
 
 
-class ChainGraph:
+class ChainGraph(Capture):
     """``CHAIN`` dependent ``solve_weighted_ls_fd_qp`` calls captured in
-    one CUDA graph. Each replay runs ``CHAIN`` kernel launches, which
-    :meth:`replay` adds to the counters ``qp.kernel_launches`` and
-    ``qp.wls_launches`` (at capture the wrapper counted calls that did
-    not run the kernel; those are taken back)."""
+    one CUDA graph (``utils/cuda_graphs.Capture``, after one warm-up):
+    each :meth:`replay` runs, and counts, ``CHAIN`` kernel launches.
+    Raises unless the capture holds ``CHAIN`` of them."""
 
     def __init__(self, A, b, S, W, D, d, iters: int = 15):
         self.args = (A, b, S, W, D, d)
         self.iters = iters
-        fk.build_kernel()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):  # warm up outside the capture
-            self._chain()
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        count = qlog.counters
-        before = (count["qp.kernel_launches"], count["qp.wls_launches"])
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.x, self.kkt = self._chain()
-        self.per_replay = count["qp.kernel_launches"] - before[0]
-        if (self.per_replay != CHAIN
-                or count["qp.wls_launches"] - before[1] != CHAIN):
-            raise RuntimeError(f"captured {self.per_replay} launches, "
-                               f"want {CHAIN}")
-        count["qp.kernel_launches"], count["qp.wls_launches"] = before
+        super().__init__(self._chain, A.device, warmups=1)
+        self.x, self.kkt = self.out
+        if not (self.counted["qp.kernel_launches"]
+                == self.counted["qp.wls_launches"] == CHAIN):
+            raise RuntimeError(
+                f"captured {self.counted['qp.kernel_launches']} launches, "
+                f"want {CHAIN}")
 
     def _chain(self):
         A, b, S, W, D, d = self.args
@@ -236,11 +224,6 @@ class ChainGraph:
                 A, S, b_i, W, D, d, iters=self.iters)
             b_i = b + 1e-6 * torch.tanh(x_i[:, :1])
         return x_i, kkt_i
-
-    def replay(self):
-        self.graph.replay()
-        qlog.counters["qp.kernel_launches"] += self.per_replay
-        qlog.counters["qp.wls_launches"] += self.per_replay
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:

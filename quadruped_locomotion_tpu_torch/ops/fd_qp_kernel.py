@@ -1,5 +1,6 @@
-"""Batched force-distribution QP: the hand-written CUDA kernel, its build,
-its wrapper, and its plain PyTorch version (≙ ``quadruped_locomotion_tpu/
+"""Batched force-distribution QP: the hand-written CUDA kernel's
+declaration (its binding is ``utils/cuda_build.CudaKernel``), its wrapper,
+and its plain PyTorch version (≙ ``quadruped_locomotion_tpu/
 ops/qp_pallas.py``).
 
 Each instance solves  min ½xᵀGx + gᵀx  s.t.  Dx ≥ d  with n = 12 forces
@@ -9,8 +10,8 @@ predictor-corrector with an active-set polish; see
 H100.
 
 :func:`solve_fd_qp` is the entry point. On CUDA tensors it launches the
-kernel (built from the repository's source with ``nvcc`` at first use)
-or raises; on CPU tensors it runs :func:`solve_fd_qp_plain`, the same
+kernel (built from the repository's source with ``nvcc`` at first use);
+on CPU tensors it runs :func:`solve_fd_qp_plain`, the same
 algorithm vectorised over the batch, which the tests hold against the
 JAX reference and which the GPU smoke run holds the kernel against.
 """
@@ -23,9 +24,7 @@ from pathlib import Path
 import torch
 
 from ..utils import logging as qlog
-from ..utils.cuda_build import (  # noqa: F401  (kept importable from here)
-    BUILD_DIR, NVCC_FLAGS, KernelBuild, _nvcc, load_kernel, ptxas_report,
-)
+from ..utils.cuda_build import Arg, CudaKernel
 
 N = 12  # primal variables (3 force components × 4 legs)
 MI = 20  # inequality rows (min normal force + 4-edge pyramid × 4 legs)
@@ -36,52 +35,16 @@ _TOL = 1e-6
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fd_qp_ipm.cu"
 
-_build: KernelBuild | None = None
-_lib = None
-
-
-def build_kernel() -> KernelBuild:
-    """Compile ``csrc/fd_qp_ipm.cu`` into ``build/`` (once per source hash)
-    and load it (once per process). Raises if nvcc fails."""
-    global _build, _lib
-    if _build is None:
-        lib, build = load_kernel(SOURCE, "fd_qp_ipm")
-        lib.fd_qp_ipm.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.fd_qp_ipm.restype = ctypes.c_int
-        _lib, _build = lib, build
-    return _build
-
-
-def launch_geometry(batch: int) -> dict:
-    """The kernel's launch at ``batch`` from the library's geometry:
-    threads and instances per block, blocks, the blocks an SM holds at
-    once, and ``half_warp_share``, the share of the running warps'
-    half-warps that carry an instance (a warp whose first instance lies
-    beyond B returns at once). Builds the kernel if needed."""
-    build = build_kernel()
-    per_block = build.instances_per_block
-    per_warp = per_block * 32 // build.threads_per_block
-    return dict(threads_per_block=build.threads_per_block,
-                instances_per_block=per_block,
-                resident_blocks_per_sm=build.resident_blocks_per_sm,
-                blocks=-(-batch // per_block),
-                half_warp_share=batch / (per_warp * -(-batch // per_warp)))
-
-
-def _check(G, g, D, d):
-    B = G.shape[0]
-    shapes = {"G": (G, (B, N, N)), "g": (g, (B, N)),
-              "D": (D, (B, MI, N)), "d": (d, (B, MI))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != G.device:
-            raise ValueError(f"{name} is on {t.device}, G on {G.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+# fd_qp_ipm(G, g, D, d, x, s, z, kkt, B, iters, stream): the callers'
+# (B, E) tensors read in place (one instance's entries are contiguous, so
+# a half-warp's loads coalesce); counted under qp.*
+KERNEL = CudaKernel(
+    SOURCE, "fd_qp_ipm", "qp",
+    inputs=(Arg("G", (N, N)), Arg("g", (N,)), Arg("D", (MI, N)),
+            Arg("d", (MI,))),
+    outputs=(Arg("x", (N,)), Arg("s", (MI,)), Arg("z", (MI,)),
+             Arg("kkt", ())),
+    scalars=(ctypes.c_int,))
 
 
 def solve_fd_qp(G, g, D, d, iters: int = 15):
@@ -90,59 +53,21 @@ def solve_fd_qp(G, g, D, d, iters: int = 15):
     G (B,12,12), g (B,12), D (B,20,12), d (B,20), float32, contiguous, on
     one device. Returns (x (B,12), s (B,20), z (B,20), kkt (B,)).
 
-    CUDA tensors go to the kernel (one launch; raises if it cannot be
-    built or launched); CPU tensors to :func:`solve_fd_qp_plain`. The
-    whole call is the span ``qp.solve``; B × ``iters`` is added to
+    CPU tensors go to :func:`solve_fd_qp_plain`, any others to the kernel
+    (:data:`KERNEL`, one launch; raises off CUDA, or if it cannot be built
+    or launched); either way the inputs are checked once, against the
+    kernel's contract (ValueError). The whole call is the span
+    ``qp.solve``; B × ``iters`` is added to
     ``counters["qp.instance_iterations"]``.
     """
     with qlog.span("qp.solve"):
-        _check(G, g, D, d)
-        qlog.counters["qp.instance_iterations"] += G.shape[0] * iters
         if G.device.type == "cpu":
-            return solve_fd_qp_plain(G, g, D, d, iters)
-        if G.device.type != "cuda":
-            raise ValueError(f"unsupported device {G.device}")
-        return launch_fd_qp(G, g, D, d, iters)
-
-
-def launch_fd_qp(G, g, D, d, iters: int = 15):
-    """One kernel launch: G (B,12,12), g (B,12), D (B,20,12), d (B,20),
-    contiguous float32 tensors on one CUDA device, read in place (one
-    instance's entries are contiguous, so a half-warp's loads coalesce).
-    Returns contiguous x (B,12), s (B,20), z (B,20), kkt (B,). Raises on
-    anything else, and if the kernel cannot be built or launched. Counts
-    the launch in ``counters["qp.kernel_launches"]`` and its B instances in
-    ``counters["qp.kernel_instances"]``."""
-    B = G.shape[0]
-    for name, t, shape in (("G", G, (B, N, N)), ("g", g, (B, N)),
-                           ("D", D, (B, MI, N)), ("d", d, (B, MI))):
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
-                or t.device.type != "cuda" or t.device != G.device
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"{name} must be a contiguous float32 CUDA tensor of shape "
-                f"{shape} on G's device, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
-    build_kernel()
-    dev = G.device
-    x = torch.empty((B, N), dtype=torch.float32, device=dev)
-    s = torch.empty((B, MI), dtype=torch.float32, device=dev)
-    z = torch.empty((B, MI), dtype=torch.float32, device=dev)
-    kkt = torch.empty((B,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib.fd_qp_ipm(
-        G.data_ptr(), g.data_ptr(), D.data_ptr(), d.data_ptr(),
-        x.data_ptr(), s.data_ptr(), z.data_ptr(), kkt.data_ptr(),
-        B, iters, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            "fd_qp_ipm launch failed: "
-            + _lib.fd_qp_ipm_error_string(rc).decode()
-        )
-    qlog.counters["qp.kernel_launches"] += 1
-    qlog.counters["qp.kernel_instances"] += B
-    return x, s, z, kkt
+            KERNEL.check(G, g, D, d)
+            out = solve_fd_qp_plain(G, g, D, d, iters)
+        else:
+            out = KERNEL(G, g, D, d, iters)
+        qlog.counters["qp.instance_iterations"] += G.shape[0] * iters
+        return out
 
 
 def form_quadratic(A, S, W, b):

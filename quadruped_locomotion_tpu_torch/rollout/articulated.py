@@ -53,8 +53,7 @@ from ..model.kinematics import (
     forward_kinematics, leg_com_positions_hip, link_rotations_hip, mv,
 )
 from ..types import GRAVITY, BaseState, RobotModel, const
-from ..utils import logging as qlog
-from ..utils.cuda_build import KernelBuild, load_kernel
+from ..utils.cuda_build import Arg, CudaKernel
 from ..utils.rotations import (
     cross, matrix_from_quat, quat_exp, quat_mul, quat_normalize, skew,
 )
@@ -332,9 +331,9 @@ def step_plain(
 
 
 # ---------------------------------------------------------------------------
-# The kernel: csrc/articulated_step.cu, built and bound as the QP's
-# (utils/cuda_build.py): nvcc into build/ once per source hash, ctypes, a C
-# entry that returns cudaGetLastError().
+# The kernel: csrc/articulated_step.cu, bound as the QP's
+# (utils/cuda_build.CudaKernel): nvcc into build/ once per source hash,
+# ctypes, a C entry that returns cudaGetLastError().
 # ---------------------------------------------------------------------------
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "articulated_step.cu"
@@ -367,21 +366,18 @@ def plant_consts(dt: float, substeps: int,
         mu=0.0 if friction_mu is None else friction_mu)
 
 
-_build: KernelBuild | None = None
-_lib = None
-
-
-def build_kernel() -> KernelBuild:
-    """Compile ``csrc/articulated_step.cu`` into ``build/`` (once per
-    source hash) and load it (once per process). Raises if nvcc fails."""
-    global _build, _lib
-    if _build is None:
-        lib, build = load_kernel(SOURCE, "articulated_step")
-        lib.articulated_step.argtypes = [ctypes.c_void_p] * 20 + [
-            ctypes.c_int, PlantConsts, ctypes.c_int, ctypes.c_void_p]
-        lib.articulated_step.restype = ctypes.c_int
-        _lib, _build = lib, build
-    return _build
+_STATE = (Arg("position", (3,)), Arg("quaternion", (4,)),
+          Arg("linear_velocity", (3,)), Arg("angular_velocity", (3,)),
+          Arg("q", (4, 3)), Arg("qd", (4, 3)),
+          Arg("pinned", (4,), torch.bool), Arg("anchors", (4, 3)))
+# articulated_step(model, the state, tau, support, ground_height, the next
+# state, B, PlantConsts, friction, stream); counted under plant.*
+KERNEL = CudaKernel(
+    SOURCE, "articulated_step", "plant",
+    inputs=(Arg("model", (MODEL_FLOATS,), batched=False), *_STATE,
+            Arg("tau", (4, 3)), Arg("support", (4,), torch.bool),
+            Arg("ground_height", (4,))),
+    outputs=_STATE, scalars=(PlantConsts, ctypes.c_int))
 
 
 # (weak reference to the model last packed, its packing)
@@ -454,9 +450,10 @@ def step_bytes(batch: int) -> int:
 def kernel_inputs(model: RobotModel, sim: SimState, tau: torch.Tensor,
                   support: torch.Tensor | None = None,
                   ground_height=0.0) -> dict:
-    """The kernel's inputs, in its argument order: the packed model, the
-    state's tensors, the torques, the commanded support and the ground
-    height under each foot, made contiguous (a no-op where they are)."""
+    """The kernel's inputs by name, in its argument order: the packed
+    model, the state's tensors, the torques, the commanded support and the
+    ground height under each foot, made contiguous (a no-op where they
+    are)."""
     robot, B = sim.robot, tau.shape[0]
     if support is None:
         support = robot.support
@@ -475,68 +472,6 @@ def kernel_inputs(model: RobotModel, sim: SimState, tau: torch.Tensor,
     return {k: t.contiguous() for k, t in ins.items()}
 
 
-_SHAPES = {"model": (MODEL_FLOATS,), "position": (3,), "quaternion": (4,),
-           "linear_velocity": (3,), "angular_velocity": (3,), "q": (4, 3),
-           "qd": (4, 3), "pinned": (4,), "anchors": (4, 3), "tau": (4, 3),
-           "support": (4,), "ground_height": (4,)}
-_FLAGS = ("pinned", "support")
-
-
-def check_kernel_inputs(ins: dict) -> int:
-    """Raises ValueError unless every input of :func:`kernel_inputs` has
-    its shape (B leading, the model none), its dtype (float32, flags
-    bool), ``tau``'s device and a contiguous layout. Returns B."""
-    B = ins["tau"].shape[0]
-    for name, tail in _SHAPES.items():
-        t = ins[name]
-        shape = tail if name == "model" else (B, *tail)
-        dtype = torch.bool if name in _FLAGS else torch.float32
-        if (tuple(t.shape) != shape or t.dtype != dtype
-                or t.device != ins["tau"].device or not t.is_contiguous()):
-            raise ValueError(
-                f"{name} must be a contiguous {dtype} tensor of shape {shape} "
-                f"on {ins['tau'].device}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}{'' if t.is_contiguous() else ', not contiguous'}")
-    return B
-
-
-def launch_step(model: RobotModel, sim: SimState, tau: torch.Tensor,
-                dt: float, support: torch.Tensor | None = None,
-                ground_height=0.0, substeps: int = SUBSTEPS,
-                friction_mu: float | None = None) -> SimState:
-    """:func:`step` as one launch of the kernel on CUDA float32 tensors, on
-    the current stream. Raises on anything else, and if the kernel cannot
-    be built or launched. Counts the launch in
-    ``counters["plant.kernel_launches"]`` and its B scenarios in
-    ``counters["plant.kernel_instances"]``."""
-    ins = kernel_inputs(model, sim, tau, support, ground_height)
-    B = check_kernel_inputs(ins)
-    dev = tau.device
-    if dev.type != "cuda":
-        raise ValueError(f"the plant kernel runs on CUDA tensors, not {dev}")
-    build_kernel()
-    out = {k: torch.empty((B, *_SHAPES[k]), dtype=ins[k].dtype, device=dev)
-           for k in ("position", "quaternion", "linear_velocity",
-                     "angular_velocity", "q", "qd", "pinned", "anchors")}
-    rc = _lib.articulated_step(
-        *(t.data_ptr() for t in ins.values()),
-        *(t.data_ptr() for t in out.values()), B,
-        plant_consts(dt, substeps, friction_mu), friction_mu is not None,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("articulated_step launch failed: "
-                           + _lib.articulated_step_error_string(rc).decode())
-    qlog.counters["plant.kernel_launches"] += 1
-    qlog.counters["plant.kernel_instances"] += B
-    base = BaseState(position=out["position"], quaternion=out["quaternion"],
-                     linear_velocity=out["linear_velocity"],
-                     angular_velocity=out["angular_velocity"])
-    robot = sim.robot.replace(base=base, q=out["q"], qd=out["qd"], tau=tau,
-                              support=out["pinned"])
-    return SimState(robot=robot, feet_world=out["anchors"],
-                    time=sim.time + dt)
-
-
 def step(
     model: RobotModel,
     sim: SimState,
@@ -553,14 +488,22 @@ def step(
     is the realised pin state. ``friction_mu`` bounds contact forces by
     the Coulomb cone and lets feet slide; None is rigid stick.
 
-    CUDA tensors go to the kernel (:func:`launch_step`, one launch; it
-    raises on anything but float32), CPU tensors to :func:`step_plain`,
-    which callers also name for the plain step on the card."""
-    if tau.is_cuda:
-        return launch_step(model, sim, tau, dt, support, ground_height,
-                           substeps, friction_mu)
-    return step_plain(model, sim, tau, dt, support, ground_height, substeps,
-                      friction_mu)
+    CUDA tensors go to the kernel (:data:`KERNEL`, one launch on the
+    current stream over :func:`kernel_inputs`; it raises on anything but
+    float32), CPU tensors to :func:`step_plain`, which callers also name
+    for the plain step on the card."""
+    if not tau.is_cuda:
+        return step_plain(model, sim, tau, dt, support, ground_height,
+                          substeps, friction_mu)
+    ins = kernel_inputs(model, sim, tau, support, ground_height)
+    (position, quaternion, linear_velocity, angular_velocity, q, qd, pinned,
+     anchors) = KERNEL(*ins.values(), plant_consts(dt, substeps, friction_mu),
+                       friction_mu is not None)
+    base = BaseState(position=position, quaternion=quaternion,
+                     linear_velocity=linear_velocity,
+                     angular_velocity=angular_velocity)
+    robot = sim.robot.replace(base=base, q=q, qd=qd, tau=tau, support=pinned)
+    return SimState(robot=robot, feet_world=anchors, time=sim.time + dt)
 
 
 def mass_matrix(model: RobotModel, base: BaseState, q: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Building and loading the port's hand-written CUDA kernels (``csrc/``):
-``nvcc`` into the package's ``build/`` directory once per source hash, a
-``ctypes`` library once per process, and the launch geometry each library
-reports. ``ops/fd_qp_kernel.py`` (the force-distribution QP) and
-``rollout/articulated.py`` (the articulated plant's step) load theirs
-through :func:`load_kernel`."""
+"""The one seam between the port's Python and its hand-written CUDA
+kernels (``csrc/``): :class:`CudaKernel` builds a kernel with ``nvcc``
+into the package's ``build/`` directory once per source hash, loads it
+with ``ctypes`` once per process, reads the launch geometry its library
+reports, and at each launch checks the tensors once, allocates the
+outputs, launches on the current stream, checks the return code and
+counts the launch. ``ops/fd_qp_kernel.py`` (the force-distribution QP)
+and ``rollout/articulated.py`` (the articulated plant's step) each
+declare their kernel as one :class:`CudaKernel`."""
 
 from __future__ import annotations
 
@@ -16,6 +19,10 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+import torch
+
+from . import logging as qlog
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
@@ -99,25 +106,133 @@ def compile_library(source: Path) -> tuple[Path, float, str]:
     return so, seconds, log_path.read_text() if log_path.exists() else ""
 
 
-def load_kernel(source: Path, prefix: str) -> tuple[ctypes.CDLL, KernelBuild]:
-    """:func:`compile_library` of ``source``, loaded with ``ctypes``. The
-    library's C entries ``<prefix>_threads_per_block``,
-    ``<prefix>_instances_per_block`` and ``<prefix>_resident_blocks_per_sm``
-    give its launch geometry (the last a CUDA error code, negated, if the
-    occupancy query fails), and ``<prefix>_error_string`` a CUDA error
-    code's text. Returns (the library, its build). Raises if nvcc or the
-    occupancy query fails."""
-    so, seconds, log = compile_library(source)
-    lib = ctypes.CDLL(str(so))
-    error_string = getattr(lib, f"{prefix}_error_string")
-    error_string.argtypes = [ctypes.c_int]
-    error_string.restype = ctypes.c_char_p
-    resident = getattr(lib, f"{prefix}_resident_blocks_per_sm")()
-    if resident <= 0:
-        raise RuntimeError(f"{prefix} occupancy query failed: "
-                           + error_string(-resident).decode())
-    return lib, KernelBuild(
-        path=so, seconds=seconds, log=log,
-        threads_per_block=getattr(lib, f"{prefix}_threads_per_block")(),
-        instances_per_block=getattr(lib, f"{prefix}_instances_per_block")(),
-        resident_blocks_per_sm=resident)
+@dataclass(frozen=True)
+class Arg:
+    """A tensor of a kernel's C entry: its name, its shape after the
+    leading batch axis B (its whole shape where ``batched`` is False) and
+    its dtype."""
+
+    name: str
+    shape: tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    batched: bool = True
+
+
+class CudaKernel:
+    """The kernel of ``source`` whose C entry ``<prefix>`` takes a pointer
+    to each of ``inputs`` and then of ``outputs``, the batch size B (an
+    int), one argument of each ctypes type in ``scalars`` and the CUDA
+    stream, and returns a CUDA error code; ``<prefix>_error_string`` reads
+    the code. Built and loaded at the first launch or :meth:`build` of the
+    process. Every launch adds 1 to ``counters["<counter>.kernel_launches"]``
+    and B to ``counters["<counter>.kernel_instances"]`` (``utils/logging``)."""
+
+    def __init__(self, source: Path, prefix: str, counter: str,
+                 inputs: tuple[Arg, ...], outputs: tuple[Arg, ...],
+                 scalars: tuple = ()):
+        self.source, self.prefix = source, prefix
+        self.inputs, self.outputs, self.scalars = inputs, outputs, scalars
+        self._launches = f"{counter}.kernel_launches"
+        self._instances = f"{counter}.kernel_instances"
+        self._entry = self._build = None
+
+    def build(self) -> KernelBuild:
+        """:func:`compile_library` and ``ctypes`` once per process. The
+        library's C entries ``<prefix>_threads_per_block``,
+        ``<prefix>_instances_per_block`` and
+        ``<prefix>_resident_blocks_per_sm`` give its launch geometry (the
+        last a CUDA error code, negated, if the occupancy query fails).
+        Raises if nvcc or the occupancy query fails."""
+        if self._build is None:
+            prefix = self.prefix
+            so, seconds, log = compile_library(self.source)
+            lib = ctypes.CDLL(str(so))
+            error_string = getattr(lib, f"{prefix}_error_string")
+            error_string.argtypes = [ctypes.c_int]
+            error_string.restype = ctypes.c_char_p
+            resident = getattr(lib, f"{prefix}_resident_blocks_per_sm")()
+            if resident <= 0:
+                raise RuntimeError(f"{prefix} occupancy query failed: "
+                                   + error_string(-resident).decode())
+            entry = getattr(lib, prefix)
+            entry.argtypes = ([ctypes.c_void_p] * (len(self.inputs)
+                                                   + len(self.outputs))
+                              + [ctypes.c_int, *self.scalars, ctypes.c_void_p])
+            entry.restype = ctypes.c_int
+            self._entry, self._error_string = entry, error_string
+            self._build = KernelBuild(
+                path=so, seconds=seconds, log=log,
+                threads_per_block=getattr(lib, f"{prefix}_threads_per_block")(),
+                instances_per_block=getattr(
+                    lib, f"{prefix}_instances_per_block")(),
+                resident_blocks_per_sm=resident)
+        return self._build
+
+    def geometry(self, batch: int) -> dict:
+        """The launch at ``batch`` from the library's geometry: threads and
+        instances per block, blocks, the blocks an SM holds at once, and
+        ``slot_share``, the share of the running warps' instance slots (a
+        half-warp for the QP, the warp for the plant) that carry an
+        instance (a warp whose first instance lies beyond B returns at
+        once). Builds the kernel if needed."""
+        build = self.build()
+        per_block = build.instances_per_block
+        per_warp = per_block * 32 // build.threads_per_block
+        return dict(threads_per_block=build.threads_per_block,
+                    instances_per_block=per_block,
+                    resident_blocks_per_sm=build.resident_blocks_per_sm,
+                    blocks=-(-batch // per_block),
+                    slot_share=batch / (per_warp * -(-batch // per_warp)))
+
+    def check(self, *tensors: torch.Tensor) -> int:
+        """Raises ValueError, naming the tensor, what was expected and what
+        was got, unless ``tensors`` are the inputs in order, each of its
+        shape (the first batched one's B leading), its dtype, contiguous
+        and on the first input's device. Returns B. Any device passes
+        here; :meth:`__call__` also requires CUDA."""
+        dev = tensors[0].device
+        lead = next(t.shape[:1] for t, a in zip(tensors, self.inputs)
+                    if a.batched)
+        for t, a in zip(tensors, self.inputs):
+            shape = (*lead, *a.shape) if a.batched else a.shape
+            if t.shape != shape:
+                expected, got = f"shape {shape}", f"shape {tuple(t.shape)}"
+            elif t.dtype != a.dtype:
+                expected, got = a.dtype, t.dtype
+            elif not t.is_contiguous():
+                expected, got = "a contiguous tensor", f"strides {t.stride()}"
+            elif t.device != dev:
+                expected = f"a tensor on {dev}, {self.inputs[0].name}'s device"
+                got = t.device
+            else:
+                continue
+            raise ValueError(f"{a.name}: expected {expected}, got {got}")
+        return lead[0]
+
+    def __call__(self, *args):
+        """One launch on the current stream: ``args`` are the input tensors
+        (read in place) and then the scalars. Returns the outputs, newly
+        allocated on the inputs' device, in order. Raises ValueError on
+        inputs that :meth:`check` refuses or that are not on a CUDA device
+        (before any build), RuntimeError if the kernel cannot be built or
+        launched."""
+        n = len(self.inputs)
+        tensors, scalars = args[:n], args[n:]
+        B = self.check(*tensors)
+        dev = tensors[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"{self.inputs[0].name}: expected a CUDA tensor "
+                             f"({self.prefix} needs CUDA), got {dev}")
+        if self._entry is None:
+            self.build()
+        outs = tuple(torch.empty((B, *a.shape), dtype=a.dtype, device=dev)
+                     for a in self.outputs)
+        rc = self._entry(*(t.data_ptr() for t in tensors),
+                         *(t.data_ptr() for t in outs), B, *scalars,
+                         torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.prefix} launch failed: "
+                               + self._error_string(rc).decode())
+        qlog.counters[self._launches] += 1
+        qlog.counters[self._instances] += B
+        return outs

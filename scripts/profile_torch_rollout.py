@@ -285,7 +285,7 @@ def main() -> int:
     full_f32_matmuls()
     dev = torch.device("cuda")
     print(f"card: {chip_smoke.card_line()}", flush=True)
-    fk.build_kernel()
+    fk.KERNEL.build()
     if path in ("headline", "load_factors"):
         profile_qp(path, dev)
     elif path == "qp_balance":

@@ -79,8 +79,11 @@ def build_variants() -> dict:
     import subprocess
 
     from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
+    from quadruped_locomotion_tpu_torch.utils.cuda_build import (
+        BUILD_DIR, NVCC_FLAGS, _nvcc, ptxas_report,
+    )
 
-    out_dir = fk.BUILD_DIR / "variants"
+    out_dir = BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = fk.SOURCE.read_text()
     procs = {}
@@ -91,14 +94,14 @@ def build_variants() -> dict:
         cu.write_text(text)
         so = out_dir / f"fd_qp_ipm_{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [fk._nvcc(), *fk.NVCC_FLAGS, *flags, "-o", str(so), str(cu)],
+            [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {"base": ctypes.CDLL(str(fk.build_kernel().path))}
+    libs = {"base": ctypes.CDLL(str(fk.KERNEL.build().path))}
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        print(json.dumps({"variant": name, "ptxas": fk.ptxas_report(log)}))
+        print(json.dumps({"variant": name, "ptxas": ptxas_report(log)}))
         libs[name] = ctypes.CDLL(str(so))
     for lib in libs.values():
         lib.fd_qp_ipm.argtypes = [ctypes.c_void_p] * 8 + [

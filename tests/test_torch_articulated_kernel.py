@@ -3,11 +3,11 @@ launched by ``rollout/articulated.step`` on CUDA tensors, which must be
 float32).
 
 On the CPU: the closed loop reads the kernel-backed ``step``; off the card
-``step`` is ``step_plain`` bit for bit and launches nothing; the wrapper's
-check refuses what the kernel does not take; and the kernel's own source,
-compiled for the CPU with g++ and run a thread per CUDA thread
-(``tests/cuda_emulation.h``), agrees with the float64 plain step on every
-state group below.
+``step`` is ``step_plain`` bit for bit and launches nothing; and the
+kernel's own source, compiled for the CPU with g++ and run a thread per
+CUDA thread (``tests/cuda_emulation.h``), agrees with the float64 plain
+step on every state group below. What a launch refuses is
+``tests/test_torch_cuda_build.py``'s.
 
 On the card (the tests marked ``cuda``; they skip without one) the kernel
 is held against the float64 plain step at B = 1, 16 and 32768 + 7 (a tail
@@ -85,34 +85,6 @@ def test_off_the_card_the_step_is_the_plain_step(friction_mu):
             counters["plant.kernel_instances"]) == before
 
 
-def _spoil(ins: dict, case: str) -> dict:
-    ins = dict(ins)
-    if case == "non_contiguous":
-        ins["q"] = ins["q"].transpose(-1, -2).contiguous().transpose(-1, -2)
-    elif case == "wrong_shape":
-        ins["anchors"] = ins["anchors"][:, :3]
-    elif case == "wrong_batch":
-        ins["ground_height"] = ins["ground_height"][1:]
-    elif case == "float64":
-        ins["tau"] = ins["tau"].double()
-    elif case == "flags_not_bool":
-        ins["support"] = ins["support"].to(torch.uint8)
-    elif case == "model_size":
-        ins["model"] = ins["model"][:-1]
-    return ins
-
-
-@pytest.mark.parametrize("case", ["non_contiguous", "wrong_shape",
-                                  "wrong_batch", "float64",
-                                  "flags_not_bool", "model_size"])
-def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
-    model, sim, tau, support, gz, _ = plant_states("rest", 3, "cpu")
-    ins = art.kernel_inputs(model, sim, tau, support, gz)
-    assert art.check_kernel_inputs(ins) == 3
-    with pytest.raises(ValueError):
-        art.check_kernel_inputs(_spoil(ins, case))
-
-
 def test_the_model_is_packed_once():
     """The kernel's model is packed at the first step of a model object
     and reused after; another model object is packed anew."""
@@ -122,12 +94,6 @@ def test_the_model_is_packed_once():
     assert packed.shape == (art.MODEL_FLOATS,)
     other = model.replace(l2=model.l2 + 0.01)
     assert not torch.equal(art.pack_model(other), packed)
-
-
-def test_launch_step_refuses_cpu_tensors():
-    model, sim, tau, support, gz, _ = plant_states("rest", 2, "cpu")
-    with pytest.raises(ValueError, match="CUDA"):
-        art.launch_step(model, sim, tau, DT, support, gz)
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +149,9 @@ def emulated(tmp_path_factory):
 
 def _emulated_step(fn, model, sim, tau, support, gz, mu) -> dict:
     ins = art.kernel_inputs(model, sim, tau, support, gz)
-    B = art.check_kernel_inputs(ins)
-    out = {k: torch.empty((B, *art._SHAPES[k]), dtype=ins[k].dtype)
-           for k in PLANT_OUT}
+    B = art.KERNEL.check(*ins.values())
+    out = {a.name: torch.empty((B, *a.shape), dtype=a.dtype)
+           for a in art.KERNEL.outputs}
     fn(*(t.data_ptr() for t in ins.values()),
        *(t.data_ptr() for t in out.values()), B,
        art.plant_consts(DT, art.SUBSTEPS, mu), mu is not None)
@@ -272,9 +238,9 @@ def test_a_rollout_launches_the_kernel_once_a_plant_step(cuda_device):
 def test_the_build_spills_nothing(cuda_device):
     """ptxas's report: no spill stores or loads; the card holds at least
     4 blocks (16 scenarios) an SM."""
-    from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
+    from quadruped_locomotion_tpu_torch.utils.cuda_build import ptxas_report
 
-    build = art.build_kernel()
-    report = fd_qp_kernel.ptxas_report(build.log)
+    build = art.KERNEL.build()
+    report = ptxas_report(build.log)
     assert report["spill_store_bytes"] == 0 and report["spill_load_bytes"] == 0
     assert build.resident_blocks_per_sm >= 4

@@ -1,10 +1,12 @@
-"""The closed loop's stages replayed from CUDA graphs
-(``utils/cuda_graphs.Graphed``: the contact, prepare and finish stages of
-``rollout/closed_loop.py``): off the card they are the eager functions; on
-the card (the tests marked ``cuda``) their replays equal eager runs bit for
-bit and hand the caller tensors of its own. Without a card those tests
-skip. On the card, where the JAX package
-is absent:
+"""The port's one CUDA-graph capture (``utils/cuda_graphs.Capture``) and
+the closed loop's stages replayed from it (``utils/cuda_graphs.Graphed``:
+the contact, prepare and finish stages of ``rollout/closed_loop.py``): off
+the card they are the eager functions; on the card (the tests marked
+``cuda``) their replays equal eager runs bit for bit and hand the caller
+tensors of its own, and a counted kernel inside a graph, captured directly,
+as a runtime ``Tick`` or as a ``Graphed`` stage, is counted once a replay
+and not at the capture. Without a card those tests skip. On the card,
+where the JAX package is absent:
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py
 """
@@ -15,9 +17,12 @@ import pytest
 import torch
 
 from quadruped_locomotion_tpu_torch import sweep
+from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel as fk
 from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+from quadruped_locomotion_tpu_torch.runtime import graph as runtime_graph
 from quadruped_locomotion_tpu_torch.types import map_tensors
 from quadruped_locomotion_tpu_torch.utils import cuda_graphs
+from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 B = 16
 
@@ -141,3 +146,42 @@ def test_graphed_ticks_equal_eager_ticks_bit_for_bit(cuda_device,
     for g in cl.STAGES.values():
         (graph,) = g.graphs.values()
         assert graph.replays == 3 * cl.CONTROL_SUBSTEPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["capture", "tick", "graphed"])
+def test_a_counted_kernel_is_counted_once_a_replay(cuda_device, how):
+    """The QP kernel at B = 3 inside a graph: its eager warm-ups count, the
+    capture does not, and each of 3 replays counts one launch of 3."""
+    G = torch.eye(12, device=cuda_device).expand(3, 12, 12).contiguous()
+    g = torch.ones((3, 12), device=cuda_device)
+    D = torch.zeros((3, 20, 12), device=cuda_device)
+    d = -torch.ones((3, 20), device=cuda_device)
+
+    def launches():
+        return counters["qp.kernel_launches"], counters["qp.kernel_instances"]
+
+    before = launches()
+    if how == "capture":
+        graph = cuda_graphs.Capture(lambda: fk.solve_fd_qp(G, g, D, d),
+                                    cuda_device, warmups=1)
+        replay, warmups = graph.replay, 1
+    elif how == "tick":
+        tick = runtime_graph.Tick(lambda: fk.solve_fd_qp(G, g, D, d),
+                                  cuda_device)
+        graph, replay = tick.graph, tick
+        warmups = runtime_graph.WARMUP_RUNS
+    else:
+        stage = cuda_graphs.Graphed(fk.solve_fd_qp)
+        stage((), G, g, D, d)  # the capture, after one warm-up, and a replay
+        (graph,) = stage.graphs.values()
+        replay, warmups = (lambda: stage((), G, g, D, d)), 2
+    assert isinstance(graph, cuda_graphs.Capture)
+    assert graph.counted == {"qp.kernel_launches": 1, "qp.kernel_instances": 3,
+                             "qp.instance_iterations": 3 * 15}
+    assert launches() == (before[0] + warmups, before[1] + 3 * warmups)
+    for _ in range(3):
+        replay()
+    torch.cuda.synchronize()
+    assert launches() == (before[0] + warmups + 3,
+                          before[1] + 3 * (warmups + 3))

@@ -41,6 +41,7 @@ import torch
 
 from quadruped_locomotion_tpu_torch.control import force_distribution as tfd
 from quadruped_locomotion_tpu_torch.ops import fd_qp_kernel
+from quadruped_locomotion_tpu_torch.utils.cuda_build import ptxas_report
 from quadruped_locomotion_tpu_torch.utils.logging import counters
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -393,12 +394,12 @@ def test_kernel_launch_geometry_on_the_card(problems, cuda_device):
     """No spills, 4 blocks of 8 instances resident an SM (32 instances),
     every half-warp of the running warps busy at an even B and half of
     them at B = 1, and ``qp.kernel_instances`` counting B a launch."""
-    build = fd_qp_kernel.build_kernel()
-    report = fd_qp_kernel.ptxas_report(build.log)
+    build = fd_qp_kernel.KERNEL.build()
+    report = ptxas_report(build.log)
     assert report["spill_store_bytes"] == report["spill_load_bytes"] == 0
     assert build.instances_per_block == 8 and build.resident_blocks_per_sm >= 4
-    assert fd_qp_kernel.launch_geometry(16384)["half_warp_share"] == 1.0
-    assert fd_qp_kernel.launch_geometry(1)["half_warp_share"] == 0.5
+    assert fd_qp_kernel.KERNEL.geometry(16384)["slot_share"] == 1.0
+    assert fd_qp_kernel.KERNEL.geometry(1)["slot_share"] == 0.5
     G, g, D, d = (torch.from_numpy(problems[k][:3]).to(cuda_device)
                   for k in "GgDd")
     before = counters["qp.kernel_launches"], counters["qp.kernel_instances"]
@@ -429,37 +430,23 @@ def test_auto_backend_on_cpu_runs_plain_and_counts_no_launch(problems):
     assert counters["qp.kernel_launches"] == 0
 
 
-def test_kernel_backend_raises_on_cpu(problems):
+@pytest.mark.parametrize("entry", ["weighted_ls", "formed"])
+def test_kernel_backend_raises_on_cpu(problems, entry):
+    """Both QP entries resolve ``backend`` alike: "kernel" needs CUDA
+    tensors, and a name that is not a backend raises."""
     G, g, D, d = (torch.from_numpy(problems[k][:2]) for k in "GgDd")
-    with pytest.raises(ValueError, match="needs CUDA"):
-        tfd.solve_formed_qp_batched(G, g, D, d, backend="kernel")
-    with pytest.raises(ValueError, match="unknown QP backend"):
-        tfd.solve_formed_qp_batched(G, g, D, d, backend="pallas_interpret")
-
-
-@pytest.mark.parametrize("fault", ["shape", "dtype", "contiguity"])
-def test_wrapper_validates_inputs(problems, fault):
-    G, g, D, d = (torch.from_numpy(problems[k][:2]) for k in "GgDd")
-    if fault == "shape":
-        D, err = D[:, :19], ValueError
-    elif fault == "dtype":
-        G, err = G.double(), TypeError
+    if entry == "formed":
+        solve = lambda backend: tfd.solve_formed_qp_batched(  # noqa: E731
+            G, g, D, d, backend=backend)
     else:
-        G, err = G.mT, ValueError
-    with pytest.raises(err):
-        fd_qp_kernel.solve_fd_qp(G, g, D, d)
-
-
-def test_entry_major_launch_refuses_cpu_tensors(problems):
-    """The raw launch (``launch_fd_qp``, which took the place of the
-    entry-major launch) takes only contiguous float32 CUDA tensors in the
-    callers' (B, E) layout; a CPU tensor raises before any build or
-    launch."""
-    counters["qp.kernel_launches"] = 0
-    G, g, D, d = (torch.from_numpy(problems[k][:2]) for k in "GgDd")
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        fd_qp_kernel.launch_fd_qp(G, g, D, d)
-    assert counters["qp.kernel_launches"] == 0
+        A, S, b, W = (torch.zeros((2, *shape)) for shape in
+                      ((6, 12), (6,), (6,), (12,)))
+        solve = lambda backend: tfd.solve_fd_qp_batched(  # noqa: E731
+            A, b, S, W, D, d, backend=backend)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        solve("kernel")
+    with pytest.raises(ValueError, match="unknown QP backend"):
+        solve("pallas_interpret")
 
 
 PTXAS = (
@@ -476,12 +463,12 @@ def test_ptxas_report(case):
     ``ptxas_report``; a log without the report raises."""
     if case == "missing":
         with pytest.raises(ValueError, match="no ptxas"):
-            fd_qp_kernel.ptxas_report("nvcc: done\n")
+            ptxas_report("nvcc: done\n")
         return
     spills = case == "spills"
     log = PTXAS.format(stack=14736 if spills else 0, st=64048 if spills else 0,
                        ld=98024 if spills else 0, regs=32 if spills else 88)
-    rep = fd_qp_kernel.ptxas_report(log)
+    rep = ptxas_report(log)
     assert rep == dict(registers=32 if spills else 88, smem_bytes=21760,
                        stack_bytes=14736 if spills else 0,
                        spill_store_bytes=64048 if spills else 0,
