@@ -1,7 +1,7 @@
-"""GPU smoke run of the PyTorch port: builds the CUDA kernels (the QP's
-and the articulated plant's), holds each against its plain PyTorch
-version, and drives every ported path through them: the massless and
-articulated closed loops, the QP headline, the
+"""GPU smoke run of the PyTorch port: builds the CUDA kernels (the QP's,
+the articulated plant's and the swing law's), holds each against its
+plain PyTorch version, and drives every ported path through them: the
+massless and articulated closed loops, the QP headline, the
 load-factor double solve and the config-5 scenario sweep; then the
 EKF-estimated closed loop, scripted motion (the preview of every bundled
 motion script and its closed loop) and the 400 Hz runtime (the controller
@@ -70,6 +70,18 @@ Phases, each of which raises (exit code 1) when a gate fails:
    bit; +1 ``plant.kernel_launches`` and +B ``plant.kernel_instances`` a
    step. Times the kernel (CUDA events) at B = 32768 on the sweep's
    states and at 4096, with friction at both, and the plain float32 step.
+   Then the swing law's kernel: build ``csrc/swing_torques.cu`` (fails on
+   spills; prints ptxas's report and the launch geometry);
+   ``swing.swing_torques`` (one launch) against the float64
+   ``swing_torques_plain`` on the controller's inputs at the last substep
+   of a planner tick of config-5 scenarios from the standing start and on
+   seeded near-straight knees, joint speeds up to 20 rad/s and tilted
+   bases, at B = 4096 and 32768. Gates: finite, within twice the float32
+   plain law's distance from the float64 one or 2e-4 N·m; two launches
+   equal bit for bit; +1 ``swing.kernel_launches`` and +B
+   ``swing.kernel_instances`` a call. Times a launch at B = 32768 and 4096
+   on the sweep's states (CUDA-graph replays of 50 launches), an eager
+   call, and the plain float32 law.
    Then the articulated main path: ``rollout(plant="articulated")`` (the
    default plant) over B = 4096 trot scenarios for ``--art-ticks``
    planner ticks (default 25, cut from 50 to make room for phase 15).
@@ -210,9 +222,11 @@ solvers).
 
 The line before the last is the ``{"kernels": [...]}`` record (the QP
 kernel through ``solve_fd_qp`` and ``solve_weighted_ls_fd_qp``, the
-plant's kernel), whose launch counts sum every main-path phase (graph
-replays included, the kernel-vs-plain comparisons excluded; the plant's
-in this process, by ``plant.kernel_launches``); the last line is
+plant's kernel, the swing law's kernel with its launch geometry and its
+time at B = 4096 too), whose launch counts sum every main-path phase
+(graph replays included, the kernel-vs-plain comparisons excluded; the
+plant's and the swing law's in this process, by
+``plant.kernel_launches`` and ``swing.kernel_launches``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1158,6 +1172,211 @@ def check_plant_kernel(device) -> dict:
         + f" ms; largest state-group error {res['state_rel_max']:.3e}")
     return res
 
+
+SWING = "swing.kernel_launches"  # the swing kernel's launch counter
+SWING_INSTANCES = "swing.kernel_instances"  # the scenarios those served
+SWING_KINDS = ("sweep", "knee", "fast", "tilted")
+SWING_BATCHES = (4096, 32768)  # the smoke's batch and the sweep cell's
+# N·m: the floor of the kernel's distance from the float64 plain law, a
+# few float32 roundings of the largest swing torques (~500 N·m)
+SWING_FLOOR = 2e-4
+
+
+class StageTap:
+    """Context manager that wraps the closed loop's stage ``name``
+    (``closed_loop.STAGES``) for one run and keeps the bound objects and a
+    copy of the arguments of its last call."""
+
+    def __init__(self, cl, name: str):
+        self.cl, self.name, self.stage = cl, name, cl.STAGES[name]
+        self.last: tuple | None = None
+
+    def __enter__(self):
+        self.cl.STAGES[self.name] = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cl.STAGES[self.name] = self.stage
+
+    def __call__(self, bound, *args):
+        from quadruped_locomotion_tpu_torch.types import map_tensors
+
+        self.last = (bound, map_tensors(args, torch.clone))
+        return self.stage(bound, *args)
+
+
+def swing_states(kind: str, B: int, device, seed: int = 0):
+    """(model, gains, state, p_des, v_des, a_des) of B seeded scenarios of
+    one kind, the swing law's inputs: ``sweep`` (the controller's, at the
+    last substep of the first planner tick of ``sweep.build_scenarios(B,
+    seed)`` from the standing start), ``knee`` (every knee within 1e-3 rad
+    of straight, where the damped solve degrades), ``fast`` (joint speeds
+    up to ±20 rad/s, where the Coriolis terms matter) and ``tilted`` (base
+    attitudes drawn uniformly over the rotations); the last three from
+    the 0.4 m stance with every joint moved by up to 0.3 rad, joint speeds
+    of 2 rad/s (normal draws) but for ``fast``, desired feet 3 cm, desired
+    velocities 0.5 m/s and accelerations 10 m/s² from the feet's (normal
+    draws)."""
+    from quadruped_locomotion_tpu_torch.control.locomotion import (
+        swing_references,
+    )
+    from quadruped_locomotion_tpu_torch.model.kinematics import (
+        forward_kinematics,
+    )
+    from quadruped_locomotion_tpu_torch.rollout import simulator as simlib
+    from quadruped_locomotion_tpu_torch.types import RobotModel, SwingGains
+
+    if kind == "sweep":
+        from quadruped_locomotion_tpu_torch import sweep
+        from quadruped_locomotion_tpu_torch.rollout import closed_loop as cl
+
+        sc = sweep.build_scenarios(B, seed, device)
+        with StageTap(cl, "prepare") as tap:
+            sweep.run(sc, 1)
+        (model, params), (state, _, pos, vel, acc) = tap.last
+        return (model, params.swing, state,
+                *swing_references(state, pos, vel, acc))
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    model = RobotModel.simpledog(device)
+    robot = simlib.default_stance_state(model, height=0.4, batch=(B,)).robot
+    q = robot.q + t(rng.uniform(-0.3, 0.3, (B, 4, 3)))
+    qd = t(rng.normal(0.0, 2.0, (B, 4, 3)))
+    quat = robot.base.quaternion
+    if kind == "knee":
+        q[..., 2] = t(rng.uniform(-1e-3, 1e-3, (B, 4)))
+    elif kind == "fast":
+        qd = t(rng.uniform(-20.0, 20.0, (B, 4, 3)))
+    elif kind == "tilted":
+        quat = t(rng.normal(size=(B, 4)))
+        quat = quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
+    state = robot.replace(q=q, qd=qd,
+                          base=robot.base.replace(quaternion=quat))
+    p_des = forward_kinematics(model, q) + t(rng.normal(0.0, 0.03, (B, 4, 3)))
+    v_des = t(rng.normal(0.0, 0.5, (B, 4, 3)))
+    a_des = t(rng.normal(0.0, 10.0, (B, 4, 3)))
+    return model, SwingGains.defaults(device), state, p_des, v_des, a_des
+
+
+def swing_readings(got: torch.Tensor, inputs: tuple) -> dict:
+    """The torques ``got`` against the float64 plain law
+    (``swing.swing_torques_plain``) on the same inputs: the largest
+    difference (N·m), beside the float32 plain law's own distance from it
+    on the same device and the largest torque."""
+    from quadruped_locomotion_tpu_torch.control.swing import (
+        swing_torques_plain,
+    )
+
+    want = swing_torques_plain(*(as_float64(x) for x in inputs))
+    plain = swing_torques_plain(*inputs)
+    return dict(max_abs_err=(got.double() - want).abs().max().item(),
+                plain_err=(plain.double() - want).abs().max().item(),
+                max_abs_tau=want.abs().max().item(),
+                finite=bool(torch.isfinite(got).all()))
+
+
+def swing_gates(r: dict, label: str) -> None:
+    """The kernel's torques finite and no farther from the float64 plain
+    law than twice the float32 plain law is, or than
+    :data:`SWING_FLOOR`."""
+    limit = max(2.0 * r["plain_err"], SWING_FLOOR)
+    if not r["finite"] or not r["max_abs_err"] <= limit:
+        raise AssertionError(f"swing kernel against the float64 plain law, "
+                             f"{label}: {json.dumps(r)}, limit {limit:.3e}")
+
+
+def hold_swing(inputs: tuple, label: str) -> dict:
+    """One launch of the swing law's kernel (``swing.swing_torques``) held
+    against the float64 plain law on the same inputs
+    (:func:`swing_readings`, :func:`swing_gates`); a second launch must
+    give the same bits, and the counters must advance by one launch and B
+    scenarios."""
+    from quadruped_locomotion_tpu_torch.control.swing import swing_torques
+    from quadruped_locomotion_tpu_torch.utils.logging import counters
+
+    B = inputs[2].q.shape[0]
+    before = counters[SWING], counters[SWING_INSTANCES]
+    got = swing_torques(*inputs)
+    counted = (counters[SWING] - before[0],
+               counters[SWING_INSTANCES] - before[1])
+    res = swing_readings(got, inputs)
+    res.update(label=label, bit_for_bit=torch.equal(got,
+                                                    swing_torques(*inputs)))
+    log(f"swing kernel vs float64 plain law, {label} B={B}: "
+        + json.dumps(res))
+    if counted != (1, B):
+        raise AssertionError(f"one swing call of {B} scenarios counted as "
+                             f"{counted} ({SWING}, {SWING_INSTANCES})")
+    if not res["bit_for_bit"]:
+        raise AssertionError(f"two swing kernel launches differ: {label}")
+    swing_gates(res, f"{label} B={B}")
+    return res
+
+
+def check_swing_kernel(device) -> dict:
+    """Phase 7's second part: the swing law's kernel's build (no spills),
+    the kernel against the float64 plain law on every seeded state kind at
+    B = 4096 and 32768 (the sweep's states at the sweep cell's shape), and
+    its time there beside the plain float32 law's. A launch's device time
+    is read from CUDA-graph replays of 50 launches (an eager call's host
+    path, ~0.2 ms, is longer than the kernel); an eager call's time is
+    kept too."""
+    from quadruped_locomotion_tpu_torch.control import swing
+    from quadruped_locomotion_tpu_torch.headline import cuda_ms
+    from quadruped_locomotion_tpu_torch.utils.cuda_build import ptxas_report
+    from quadruped_locomotion_tpu_torch.utils.cuda_graphs import Capture
+
+    build = swing.KERNEL.build()
+    report = ptxas_report(build.log)
+    geometry = dict(threads_per_block=build.threads_per_block,
+                    scenarios_per_block=build.instances_per_block,
+                    resident_blocks_per_sm=build.resident_blocks_per_sm)
+    log(f"built {build.path.name} in {build.seconds:.1f} s; "
+        f"swing_torques ptxas report: {json.dumps(report)}; "
+        + json.dumps(geometry))
+    if report["spill_store_bytes"] or report["spill_load_bytes"]:
+        raise AssertionError(f"swing_torques spills registers: {report}")
+
+    states = {(kind, B): swing_states(kind, B, device, seed=B)
+              for B in SWING_BATCHES for kind in SWING_KINDS}
+    cases = [hold_swing(inputs, label=kind)
+             for (kind, _), inputs in states.items()]
+    small, big = (states["sweep", b] for b in SWING_BATCHES)
+
+    def device_ms(inputs, launches=50):
+        graph = Capture(lambda: [swing.swing_torques(*inputs)
+                                 for _ in range(launches)], device, warmups=1)
+        return cuda_ms(graph.replay, 20) / launches
+
+    # the sweep's states at B = 32768 in turns with those at 4096; an eager
+    # call at 32768; the plain float32 law at 32768
+    runs = [device_ms(x) for x in (big, small, small, big)]
+    times = dict(ms_kernel=(runs[0] + runs[3]) / 2,
+                 ms_4096=(runs[1] + runs[2]) / 2,
+                 ms_call=cuda_ms(lambda: swing.swing_torques(*big), 200),
+                 ms_plain=cuda_ms(lambda: swing.swing_torques_plain(*big), 5,
+                                  warmup=1))
+    B = SWING_BATCHES[-1]
+    flops, nbytes = swing.swing_flops() * 4 * B, swing.swing_bytes(B)
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    res = dict(ptxas=report, geometry=geometry, cases=cases, **times,
+               flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               max_abs_err=max(c["max_abs_err"] for c in cases))
+    log(f"swing_torques: B={B} (the sweep's states) {times['ms_kernel']:.4f}"
+        f" ms, B={SWING_BATCHES[0]} {times['ms_4096']:.4f} ms a launch "
+        f"(graph replays); an eager call {times['ms_call']:.4f} ms; plain "
+        f"float32 law {times['ms_plain']:.2f} ms at B={B}; bound "
+        f"{res['bound_ms'] * 1e3:.2f} us ({flops:.3e} flop / 67 TFLOP/s = "
+        f"{t_ops * 1e3:.2f} us, {nbytes} B / 3.35 TB/s = "
+        f"{t_bytes * 1e3:.2f} us); runs B={B}, {SWING_BATCHES[0]}, "
+        f"{SWING_BATCHES[0]}, {B}: " + ", ".join(f"{r:.4f}" for r in runs)
+        + f" ms; largest error {res['max_abs_err']:.3e} N·m")
+    return res
 
 
 
@@ -2375,13 +2594,14 @@ def main() -> int:
     from quadruped_locomotion_tpu_torch.utils.logging import counters
 
     dump = None if args.dump is None else {}
-    phase_s, phase_plant = {}, {}
+    phase_s, phase_plant, phase_swing = {}, {}, {}
 
     def timed(name, fn, *a):
-        t0, launched = time.perf_counter(), counters[PLANT]
+        t0, launched = time.perf_counter(), (counters[PLANT], counters[SWING])
         out = fn(*a)
         phase_s[name] = time.perf_counter() - t0
-        phase_plant[name] = counters[PLANT] - launched
+        phase_plant[name] = counters[PLANT] - launched[0]
+        phase_swing[name] = counters[SWING] - launched[1]
         return out
 
     k = timed("kernel_check", check_kernel, BATCH, device, dump)
@@ -2390,6 +2610,7 @@ def main() -> int:
     h = timed("headline", check_headline, BATCH, device, dump)
     lf = timed("load_factors", check_load_factors, BATCH, device)
     pk = timed("plant_kernel", check_plant_kernel, device)
+    sk = timed("swing_kernel", check_swing_kernel, device)
     a = timed("articulated", check_articulated, BATCH, args.art_ticks, device,
               dump)
     lat = timed("latency", check_latency, args.latency_chunks, device)
@@ -2421,6 +2642,7 @@ def main() -> int:
     log("phase wall seconds: " + json.dumps(phase_s)
         + f"; whole script {time.perf_counter() - t_start:.1f} s")
     log("plant kernel launches by phase: " + json.dumps(phase_plant))
+    log("swing kernel launches by phase: " + json.dumps(phase_swing))
     record = {"kernels": [{
         "name": "fd_qp_ipm",
         "route": "cuda",
@@ -2457,6 +2679,24 @@ def main() -> int:
         "plain_ms": pk["ms_plain"],
         "bound_ms": pk["bound_ms"],
         "bound_by": pk["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "swing_torques",
+        "route": "cuda",
+        "source": "quadruped_locomotion_tpu_torch/csrc/swing_torques.cu",
+        "replaces": "quadruped_locomotion_tpu/control/swing.py:32",
+        # the swing law's launches in this process but for the comparisons
+        # with the plain law and their timing (the swing_kernel phase)
+        "launches": sum(n for k, n in phase_swing.items()
+                        if k != "swing_kernel"),
+        "max_abs_err": sk["max_abs_err"],
+        "ms": sk["ms_kernel"],
+        "ms_4096": sk["ms_4096"],
+        "call_ms": sk["ms_call"],
+        "geometry": sk["geometry"],
+        "plain_ms": sk["ms_plain"],
+        "bound_ms": sk["bound_ms"],
+        "bound_by": sk["bound_by"],
         "library_ms": None,
     }]}
     log(card)

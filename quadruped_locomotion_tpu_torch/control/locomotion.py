@@ -62,6 +62,19 @@ class LocomotionContext(NamedTuple):
     tau_swing: torch.Tensor  # (...,4,3) swing computed-torque output
 
 
+def swing_references(state: RobotState, swing_pos_world: torch.Tensor,
+                     swing_vel_world: torch.Tensor,
+                     swing_acc_world: torch.Tensor):
+    """World → base swing references (p_des, v_des, a_des), each (...,4,3):
+    plain rotated spline derivatives, without base-twist compensation (the
+    reference's semantics)."""
+    q = state.base.quaternion[..., None, :]
+    return (quat_inv_rotate(q, swing_pos_world
+                            - state.base.position[..., None, :]),
+            quat_inv_rotate(q, swing_vel_world),
+            quat_inv_rotate(q, swing_acc_world))
+
+
 def locomotion_prepare(
     model: RobotModel,
     params: ControllerParams,
@@ -76,14 +89,8 @@ def locomotion_prepare(
     feet = forward_kinematics(model, state.q)
     A, b, S, W, D, d = build_qp(model, params.cfd, state, vf, vt, feet)
     G, g = form_quadratic(A, S, W, b)
-
-    # world → base swing references: plain rotated spline derivatives,
-    # without base-twist compensation (the reference's semantics).
-    q = state.base.quaternion[..., None, :]
-    p_des = quat_inv_rotate(q, swing_pos_world - state.base.position[..., None, :])
-    v_des = quat_inv_rotate(q, swing_vel_world)
-    a_des = quat_inv_rotate(q, swing_acc_world)
-    tau_swing = swing_torques(model, params.swing, state, p_des, v_des, a_des)
+    tau_swing = swing_torques(model, params.swing, state, *swing_references(
+        state, swing_pos_world, swing_vel_world, swing_acc_world))
     return LocomotionContext(
         A=A, b=b, S=S, W=W, D=D, d=d, G=G, g=g,
         virtual_force=vf, virtual_torque=vt, tau_swing=tau_swing,

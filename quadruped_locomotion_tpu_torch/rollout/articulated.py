@@ -43,7 +43,6 @@ against.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from pathlib import Path
 
 import torch
@@ -53,7 +52,7 @@ from ..model.kinematics import (
     forward_kinematics, leg_com_positions_hip, link_rotations_hip, mv,
 )
 from ..types import GRAVITY, BaseState, RobotModel, const
-from ..utils.cuda_build import Arg, CudaKernel
+from ..utils.cuda_build import MODEL_FLOATS, Arg, CudaKernel, pack_model
 from ..utils.rotations import (
     cross, matrix_from_quat, quat_exp, quat_mul, quat_normalize, skew,
 )
@@ -337,11 +336,6 @@ def step_plain(
 # ---------------------------------------------------------------------------
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "articulated_step.cu"
-# RobotModel's fields in the order the kernel's Model struct reads them
-MODEL_FIELDS = ("hip_pos", "hip_rot", "d", "l1", "l2", "link_mass",
-                "link_com", "link_inertia", "base_mass", "leg_mass",
-                "base_inertia", "hip_offset", "com_in_base", "joint_damping")
-MODEL_FLOATS = 120
 
 
 class PlantConsts(ctypes.Structure):
@@ -378,23 +372,6 @@ KERNEL = CudaKernel(
             Arg("tau", (4, 3)), Arg("support", (4,), torch.bool),
             Arg("ground_height", (4,))),
     outputs=_STATE, scalars=(PlantConsts, ctypes.c_int))
-
-
-# (weak reference to the model last packed, its packing)
-_packed: tuple = (None, None)
-
-
-def pack_model(model: RobotModel) -> torch.Tensor:
-    """(120,) float32: the model's tensors in :data:`MODEL_FIELDS` order,
-    on the model's device; packed once and reused while the same model
-    object is stepped (a model is never written in place)."""
-    global _packed
-    ref, packed = _packed
-    if ref is None or ref() is not model:
-        packed = torch.cat([getattr(model, f).reshape(-1).to(torch.float32)
-                            for f in MODEL_FIELDS])
-        _packed = (weakref.ref(model), packed)
-    return packed
 
 
 def step_flops(substeps: int = SUBSTEPS, friction: bool = False) -> int:

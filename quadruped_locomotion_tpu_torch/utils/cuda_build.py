@@ -4,9 +4,11 @@ into the package's ``build/`` directory once per source hash, loads it
 with ``ctypes`` once per process, reads the launch geometry its library
 reports, and at each launch checks the tensors once, allocates the
 outputs, launches on the current stream, checks the return code and
-counts the launch. ``ops/fd_qp_kernel.py`` (the force-distribution QP)
-and ``rollout/articulated.py`` (the articulated plant's step) each
-declare their kernel as one :class:`CudaKernel`."""
+counts the launch. ``ops/fd_qp_kernel.py`` (the force-distribution QP),
+``rollout/articulated.py`` (the articulated plant's step) and
+``control/swing.py`` (the swing-leg torques) each declare their kernel as
+one :class:`CudaKernel`; the last two read the robot model as
+:func:`pack_model` packs it."""
 
 from __future__ import annotations
 
@@ -17,12 +19,17 @@ import re
 import shutil
 import subprocess
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
+from typing import TYPE_CHECKING
 
 import torch
 
 from . import logging as qlog
+
+if TYPE_CHECKING:
+    from ..types import RobotModel
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
@@ -104,6 +111,33 @@ def compile_library(source: Path) -> tuple[Path, float, str]:
         os.replace(tmp_log, log_path)
         os.replace(tmp, so)
     return so, seconds, log_path.read_text() if log_path.exists() else ""
+
+
+# RobotModel's fields in the order the kernels' Model struct reads them
+MODEL_FIELDS = ("hip_pos", "hip_rot", "d", "l1", "l2", "link_mass",
+                "link_com", "link_inertia", "base_mass", "leg_mass",
+                "base_inertia", "hip_offset", "com_in_base", "joint_damping")
+MODEL_FLOATS = 120
+
+# the packings of the live model objects, by id (each entry goes with its
+# model: a kernel packed inside a CUDA graph's capture would read memory
+# that only the graph's replays fill, so every model the kernels are given
+# keeps its own packing)
+_packed: dict[int, torch.Tensor] = {}
+
+
+def pack_model(model: RobotModel) -> torch.Tensor:
+    """(120,) float32: the model's tensors in :data:`MODEL_FIELDS` order,
+    on the model's device; packed at the first call for a model object and
+    reused while it lives (a model is never written in place)."""
+    key = id(model)
+    packed = _packed.get(key)
+    if packed is None:
+        packed = torch.cat([getattr(model, f).reshape(-1).to(torch.float32)
+                            for f in MODEL_FIELDS])
+        _packed[key] = packed
+        weakref.finalize(model, _packed.pop, key, None)
+    return packed
 
 
 @dataclass(frozen=True)
